@@ -18,7 +18,12 @@ non-zero exit code; nothing is caught):
    whose f32 distance may fall on either side of eps² counted and allowed, topk
    against f64 distances within TOPK_RTOL, exactly on duplicate rows and on the
    sentinel tail of masked items, the histograms bit for bit on integer stats
-   and within HIST_RTOL of each bin's sum |val| on normal ones).
+   and within HIST_RTOL of each bin's sum |val| on normal ones). The small
+   shapes include the Gram kernel's edges (d 1, 7, 129, 257; n_valid 0, 1 and
+   off every row step, chunk and tile edge) and the top-k selection's hard
+   cases (TOPK_HARD: items in descending distance order, all-duplicate items,
+   k 1 / 200 / K_MAX, nq around the 64-query tile, n off the 128-item tile and
+   n < k, d off the mma depth of 8, masked tails).
 3. Main paths, through the estimators, each driven with every kernel's launch
    counter zeroed just before it and read just after; every kernel of a path
    must have run in it:
@@ -58,9 +63,13 @@ non-zero exit code; nothing is caught):
    4,096 queries and for topk in one item range, whose calls take seconds),
    of each kernel, its plain version and the PyTorch
    calls that compute the same function where there are some, at the main
-   paths' shapes (topk at both kNN traffics, and with its item ranges pinned
-   to one against the wrapper's rule); each kernel's bound from the card's
-   published peaks; the cost of the Lloyd loop's per-iteration host sync.
+   paths' shapes (topk at both kNN traffics with the items' cached norms, as
+   kneighbors calls it, and with its item ranges pinned to one against the
+   wrapper's rule); each kernel's bound from the card's
+   published peaks (f32 on the CUDA cores, and for the 3xTF32 kernels, xtx,
+   xtxy and topk, also three TF32 operations per f32 operation on the tensor
+   cores); the top-k and Gram kernels' shared memory, launch plan and ptxas
+   report; the cost of the Lloyd loop's per-iteration host sync.
 
 The last three lines of standard output are one JSON object with a row per
 kernel, the card's name and power limit as nvidia-smi gives them, and
@@ -123,6 +132,8 @@ HIST_RTOL = 1e-5  # of sum |val| per bin: normal-valued histogram sums in anothe
 RF_REG_RTOL = 1e-4
 RF_REG_MOVED = 0.01
 PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores (NVIDIA data sheet)
+PEAK_TF32_FLOPS = 495e12  # H100 SXM, TF32 on the tensor cores, dense
+TF32X3 = ("xtx", "xtxy", "topk")  # kernels whose products are 3xTF32 on the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 REPLACES = {
     "xtx": "spark_rapids_ml_tpu/ops/pallas_xtwx.py:55",
@@ -159,6 +170,13 @@ TOPK_RTOL = 1e-5
 
 def log(*args) -> None:
     print(*args, flush=True)
+
+
+def ptxas_lines(report: str) -> list:
+    """ptxas -v's lines naming each kernel, its registers and shared memory,
+    and its stack and spills."""
+    keys = ("entry function", "registers", "spill")
+    return [line.strip() for line in report.splitlines() if any(k in line for k in keys)]
 
 
 def require(cond: bool, what: str) -> None:
@@ -508,6 +526,17 @@ def phase_small(torch) -> None:
         X, y = torch.from_numpy(Xh).cuda(), torch.from_numpy(yh).cuda()
         check_xtxy(X, y, n_valid, f"n={n} n_valid={n_valid} d={d}")
         check_xtxy(X, y, n, f"n={n} n_valid={n} d={d}")
+    # the Gram kernel's edges: d off the 128-column tile and the mma depth of 8,
+    # one column, one past a tile; n_valid 0, 1 and off every 32-row step,
+    # chunk and tile edge
+    for d in (1, 7, 129, 257):
+        Xh, _ = blobs(n, d, 7, SEED + 5 * d, spread=3.0)
+        Xh += np.float32(1.5)
+        yh = regression_label(Xh, SEED + 2 * d)
+        X, y = torch.from_numpy(Xh).cuda(), torch.from_numpy(yh).cuda()
+        for nv in (0, 1, 4_099, n_valid):
+            check_xtx(X, nv, f"n={n} n_valid={nv} d={d}")
+            check_xtxy(X, y, nv, f"n={n} n_valid={nv} d={d}")
     nq, n_items = 1_777, 5_003  # Q and X differ, neither a multiple of a tile
     for d in (3, 32, 33, 130):  # d <= 32 keeps the query tile resident
         rng = np.random.default_rng(SEED + 100 + d)
@@ -570,6 +599,63 @@ def phase_small_topk(torch) -> None:
     check_topk(Q, X, valid, 256, "nq=40 n=1000 n_valid=3 k=256")
     Q, X, valid, dups = topk_case(torch, 10, 20, 13, SEED + 7, 0.3)
     check_topk(Q, X, valid, 256, "nq=10 n=20 k=256 (clamps to 20)", dups=dups)
+    phase_small_topk_hard(torch)
+
+
+# The selection's hard cases: (kind, nq, n, d, k, masked tail). nq around the
+# 64-query tile, n off the 128-item tile and below k, d off the mma depth of 8.
+TOPK_HARD = [
+    ("descending", 1, 5_003, 3, 200, False), ("descending", 63, 5_003, 33, 256, True),
+    ("descending", 64, 20_011, 256, 1, False), ("descending", 65, 20_011, 127, 200, True),
+    ("descending", 100, 50_003, 1, 256, False),
+    ("duplicate", 1, 777, 3, 256, True), ("duplicate", 65, 5_003, 33, 200, False),
+    ("duplicate", 100, 10_007, 256, 1, True), ("duplicate", 64, 150, 127, 200, False),
+    ("blobs", 63, 150, 1, 200, True), ("blobs", 65, 1_000, 256, 256, False),
+    ("blobs", 100, 9_999, 127, 1, True),
+]
+
+
+def topk_hard_case(torch, kind: str, nq: int, n: int, d: int, seed: int, tail: bool):
+    """(Q, X, valid). "descending": items at radii falling with their id around
+    queries at (or within 1e-3 of) the origin, so nearly every item is closer
+    than every one before it and every candidate passes the running k-th key;
+    "duplicate": every item the same point, ties only; "blobs": a mixture.
+    With `tail`, the last quarter of the items is invalid."""
+    rng = np.random.default_rng(seed)
+    if kind == "descending":
+        u = rng.standard_normal((n, d))
+        u /= np.linalg.norm(u, axis=1, keepdims=True)
+        Xh = (np.linspace(20.0, 1.0, n)[:, None] * u).astype(np.float32)
+        Qh = (1e-3 * rng.standard_normal((nq, d))).astype(np.float32)
+        Qh[0] = 0.0
+    elif kind == "duplicate":
+        Xh = np.repeat(rng.normal(0.0, 3.0, (1, d)), n, axis=0).astype(np.float32)
+        Qh = rng.normal(0.0, 3.0, (nq, d)).astype(np.float32)
+    else:
+        Xh, _ = blobs(n, d, 5, seed, spread=3.0)
+        Qh = Xh[rng.choice(n, nq)] + rng.normal(0, 0.3, (nq, d)).astype(np.float32)
+    valid = np.ones(n, bool)
+    if tail:
+        valid[n - n // 4 :] = False
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    return to(Qh), to(Xh), to(valid)
+
+
+def phase_small_topk_hard(torch) -> None:
+    for i, (kind, nq, n, d, k, tail) in enumerate(TOPK_HARD):
+        Q, X, valid = topk_hard_case(torch, kind, nq, n, d, SEED + 200 + i, tail)
+        label = f"{kind} nq={nq} n={n} d={d} k={k}" + (" masked tail" if tail else "")
+        _, dk, ik = check_topk(Q, X, valid, k, label)
+        if kind == "duplicate":  # equal d2: the valid ids in order, then the sentinel tail
+            order = torch.cat([valid.nonzero()[:, 0], (~valid).nonzero()[:, 0]])
+            kk = min(k, n)
+            require(bool((ik == order[:kk].to(ik.dtype)[None, :]).all()),
+                    f"topk {label}: ties not lowest id first")
+            nv = min(kk, int(valid.sum()))
+            bits = dk[:, :nv].contiguous().view(torch.int32)
+            require(bool((bits == bits[:, :1]).all()), f"topk {label}: tied d2 bits differ")
+    log(f"  topk: {len(TOPK_HARD)} hard cases (descending distances, all-duplicate items, "
+        f"n < k, masked tails) held to f64 and plain; ties lowest id first")
 
 
 def check_hist(got, plain, abs_plain, exact: bool, label: str) -> float:
@@ -937,6 +1023,13 @@ def bound(nbytes: float, flops: float):
     return 1e3 * max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
 
 
+def bound_tf32x3(nbytes: float, flops: float):
+    """The bound with the products in 3xTF32: three TF32 operations per f32
+    operation at the tensor cores' peak."""
+    t_b, t_f = nbytes / PEAK_BYTES, 3.0 * flops / PEAK_TF32_FLOPS
+    return 1e3 * max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
+
+
 def main() -> int:
     import torch
 
@@ -986,9 +1079,8 @@ def main() -> int:
     reports = _cuda.build()
     log(f"  built {len(reports)} kernels in {time.perf_counter() - t0:.1f} s")
     for name, rep in reports.items():
-        for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"    {name}: {line.strip()}")
+        for line in ptxas_lines(rep):
+            log(f"    {name}: {line}")
 
     phase_small(torch)
 
@@ -1319,8 +1411,10 @@ def main() -> int:
             2.0 * N_DB * N_DB * D_DB + 4.0 * N_DB * N_DB,
         ),
         "topk": (
-            lambda: topk_mod.fused_topk(Qk, X, valid_all, K_KNN),
-            lambda: topk_mod.topk_plain(Qk, X, valid_all, K_KNN),
+            # with the items' cached norms, as kneighbors calls it and as the
+            # library figure has them
+            lambda: topk_mod.fused_topk(Qk, X, valid_all, K_KNN, x2=x2_main),
+            lambda: topk_mod.topk_plain(Qk, X, valid_all, K_KNN, x2=x2_main),
             lambda: topk_library(Qk, K_KNN),
             *topk_bytes_flops(NQ_KNN, K_KNN),
         ),
@@ -1330,8 +1424,12 @@ def main() -> int:
         plain_ms = time_ms(torch, plain)
         lib_ms = time_ms(torch, lib) if lib is not None else None
         b_ms, b_by = bound(nbytes, flops)
+        tc = ""
+        if name in TF32X3:
+            tc_ms, tc_by = bound_tf32x3(nbytes, flops)
+            tc = f", 3xTF32 bound {tc_ms:.4f} ms ({tc_by})"
         log(f"  {name}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library "
-            f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}  bound {b_ms:.4f} ms ({b_by})")
+            f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}  bound {b_ms:.4f} ms ({b_by}){tc}")
         rows.append({
             "name": name, "route": "cuda", "source": SOURCE[name], "replaces": REPLACES[name],
             "launches": launches[name], "max_abs_err": errs[name]["max_abs_err"],
@@ -1345,22 +1443,42 @@ def main() -> int:
     # the top-k kernel at the k = 10 traffic, and at both with the items in one
     # range against the wrapper's rule (the kernel is warm: no warm-up)
     b_ms, b_by = bound(*topk_bytes_flops(NQ_KNN10, K_KNN10))
-    ms10 = time_ms(torch, lambda: topk_mod.fused_topk(Qk10, X, valid_all, K_KNN10), 3, 0)
-    plain10 = time_ms(torch, lambda: topk_mod.topk_plain(Qk10, X, valid_all, K_KNN10), 3, 1)
+    tc_ms, tc_by = bound_tf32x3(*topk_bytes_flops(NQ_KNN10, K_KNN10))
+    ms10 = time_ms(torch, lambda: topk_mod.fused_topk(Qk10, X, valid_all, K_KNN10, x2=x2_main), 3, 0)
+    plain10 = time_ms(torch, lambda: topk_mod.topk_plain(Qk10, X, valid_all, K_KNN10, x2=x2_main), 3, 1)
     lib10 = time_ms(torch, lambda: topk_library(Qk10, K_KNN10), 3, 1)
     log(f"  topk at {NQ_KNN10} queries, k={K_KNN10}: kernel {ms10:.4f} ms  plain {plain10:.4f} ms  "
-        f"library {lib10:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+        f"library {lib10:.4f} ms  bound {b_ms:.4f} ms ({b_by}), 3xTF32 bound {tc_ms:.4f} ms "
+        f"({tc_by})")
     topk_ms = next(r["ms"] for r in rows if r["name"] == "topk")
     for Q_t, kk, auto_ms in ((Qk, K_KNN, topk_ms), (Qk10, K_KNN10, ms10)):
         nq_t = Q_t.shape[0]
-        auto_splits = topk_mod._splits(nq_t, N_MAIN, _cuda.sm_count(Q_t))[0]
+        auto_splits = topk_mod._splits(nq_t, N_MAIN, kk, _cuda.sm_count(Q_t))[0]
         one_ms = pinned_splits(topk_mod, 1, lambda: time_ms(
-            torch, lambda: topk_mod.fused_topk(Q_t, X, valid_all, kk), 3, 0))
+            torch, lambda: topk_mod.fused_topk(Q_t, X, valid_all, kk, x2=x2_main), 3, 0))
         log(f"  topk item ranges at {nq_t} queries, k={kk}: the rule's {auto_splits} ranges "
             f"{auto_ms:.4f} ms, one range {one_ms:.4f} ms ({one_ms / auto_ms:.3f}x)")
     # the pools' share at the benchmark's traffic: its queries and item ranges at k = 10
-    ms_small_k = time_ms(torch, lambda: topk_mod.fused_topk(Qk, X, valid_all, K_KNN10))
+    ms_small_k = time_ms(torch, lambda: topk_mod.fused_topk(Qk, X, valid_all, K_KNN10, x2=x2_main))
     log(f"  topk at {NQ_KNN} queries: k={K_KNN} {topk_ms:.4f} ms, k={K_KNN10} {ms_small_k:.4f} ms")
+    # as PRs 3 and 4 timed it: the wrapper also computes the items' norms
+    ms_norms = time_ms(torch, lambda: topk_mod.fused_topk(Qk, X, valid_all, K_KNN))
+    ms10_norms = time_ms(torch, lambda: topk_mod.fused_topk(Qk10, X, valid_all, K_KNN10), 3, 1)
+    log(f"  topk with the items' norms computed in the wrapper (as PRs 3-4 timed it): "
+        f"{NQ_KNN} queries, k={K_KNN} {ms_norms:.4f} ms; {NQ_KNN10} queries, k={K_KNN10} "
+        f"{ms10_norms:.4f} ms")
+    sms = _cuda.sm_count(X)
+    for kk in (K_KNN10, K_KNN, topk_mod.K_MAX):
+        log(f"  topk at k={kk}: {topk_mod._smem_bytes(kk)} bytes of dynamic shared memory a "
+            f"block (ops/topk.py::_smem_bytes), {topk_mod._buffer_keys(kk)}-key candidate "
+            f"buffers, one block per SM; item ranges at {NQ_KNN} / {NQ_KNN10} queries: "
+            f"{topk_mod._splits(NQ_KNN, N_MAIN, kk, sms)[0]} / "
+            f"{topk_mod._splits(NQ_KNN10, N_MAIN, kk, sms)[0]}")
+    log(f"  xtx/xtxy: {xtwx.SMEM_BYTES} bytes of dynamic shared memory a block, one block "
+        f"per SM; {xtwx._chunks(N_MAIN, 3, sms)[1]} row chunks x 3 tiles at d = {D_MAIN}")
+    for name in ("xtx", "topk"):
+        for line in ptxas_lines(reports[name]):
+            log(f"  ptxas {name}: {line}")
 
     # the Lloyd loop's per-iteration host sync: the same iterations with the
     # convergence read every iteration and with one read at the end

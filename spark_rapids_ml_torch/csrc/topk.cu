@@ -9,191 +9,491 @@
 // running top-k of the fused distance+select family, reached through
 // _fused_topk_scan, fused_topk_pinned and fused_topk), in its exact f32 mode.
 //
-// What bounds it on the H100: the cross terms take 2 nq n d f32 operations and
-// the criterion and the compare about 4 more per pair. At the main path's
-// shapes (4,096 queries against 8,388,608 x 256 items, k = 10) that is
-// 1.76e16 operations, 263 ms at the 67 TFLOP/s f32 peak of the CUDA cores,
-// against 8.6 GB of items read once (2.6 ms at 3.35 TB/s): it is bound by
-// operations. The traffic this tile geometry causes is larger than the bytes
-// the function must move: every 32-query tile reads all of X, so X is read
-// nq / 32 = 128 times, about 1.1 TB, 330 ms at 3.35 TB/s if no block found
-// its chunk in L2; that is above the operation bound. Larger query tiles, or
-// a tile order that keeps a chunk of X in L2 while every query tile reads it,
-// and wgmma with 3xTF32 are the ways to its bound (a later change).
+// What bounds it on the H100: the cross terms take 2 nq n d operations and the
+// criterion and the compare about 4 more per pair. At the repo benchmark's
+// traffic (100 queries against 8,388,608 x 256 items, k = 200) that is
+// 4.3e14: 6.5 ms at the 67 TFLOP/s f32 peak of the CUDA cores, 2.6 ms in
+// 3xTF32 on the tensor cores (three TF32 products per f32 product at
+// 495 TFLOP/s), against 8.6 GB of items read once (2.6 ms at 3.35 TB/s). At
+// 4,096 queries it is bound by operations, 107 ms in 3xTF32.
 //
-// Design:
-//   * A block owns one 32-query tile (NR_ROWS, a grid-stride loop over tiles)
-//     and one contiguous range of items (blockIdx.y: the wrapper splits the
-//     items into n_splits ranges so that a few query tiles still fill the
-//     card). It scans its range in ascending chunks of 32 items, and keeps a
-//     sorted pool of k (d2, id) per query in shared memory, so nothing is
-//     shared between blocks and no atomics are needed.
-//   * The cross terms are nearest.cuh's cross_chunk: each thread owns one
-//     query and the items g, g + 8, g + 16, g + 24 of a chunk (g = tid % 8),
-//     f32 FMA, no TF32. For d <= 32 the query tile is staged once and stays
-//     resident.
-//   * After a chunk, a candidate enters its query's pool only when it is
-//     strictly below the pool's k-th value. A warp ballot skips the chunk
-//     when none of the warp's candidates does (nearly every chunk, once the
-//     pools have filled). Otherwise the eight threads of a query write their
-//     32 candidates to shared memory in id order, and one of them inserts
-//     them one by one. Candidates arrive in ascending id order, and an
-//     insertion goes after every equal value, so the lower id keeps a tie.
-//   * Pools start as (+inf, -1): an invalid item at INVALID_D2 still beats
-//     an empty slot, so when k exceeds the valid items the tail holds the
-//     earliest invalid ids at exactly INVALID_D2, as in the TPU kernel. An
-//     item past the range is never a candidate.
-//   * With n_splits > 1, each split's pools go to a scratch buffer and a
-//     second kernel merges them per query, splits in ascending order, ties to
-//     the earlier split, which holds the lower ids.
+// Design (tf32x3.cuh has the products and the copies):
+//   * A block owns a 64-query tile and one contiguous range of items, walked
+//     in 128-item tiles. Query tiles run fastest in the grid, so the blocks
+//     reading one item range run together and share it through L2; the
+//     wrapper (ops/topk.py::_splits) sizes the ranges so that tiles x ranges
+//     fills whole waves of the card's resident blocks.
+//   * The distance tile is 3xTF32 on the tensor cores (mma.sync m16n8k8):
+//     16 warps as 4 x 4, each a 16 x 32 block of the 64 x 128 tile. Query and
+//     item columns come 32 at a time through a 3-stage cp.async ring, so the
+//     next chunk's copies overlap this chunk's products; any d runs, columns
+//     past d and rows past the edges zero-filled by the copy.
+//   * Selection by 64-bit keys: the f32 bits of d2 (non-negative, so
+//     monotone as unsigned) high and the item id low, the key the plain
+//     version selects by (ops/selection.py). Keys are unique and order as
+//     (d2, id), so ties go to the lower id whatever order candidates arrive
+//     in. Each query keeps a sorted pool of k keys in shared memory (sized by
+//     k at launch) and a candidate buffer of 64 keys (32 when 64 do not fit
+//     beside the pools). The epilogue of a tile forms d2 in registers; a
+//     thread first compares the least d2 of its 8 items of a query with the
+//     query's current k-th d2, and only when that passes forms the keys and
+//     appends each one below the query's k-th key to the query's buffer. When
+//     a buffer is full, a warp sorts it (bitonic) and merges it into the pool
+//     (merge path: every output found by a binary search, the pool rewritten
+//     in place 32 outputs at a time from the top), which updates the k-th
+//     key; the candidates that did not fit are appended after that, and the
+//     rest wait for the range's end.
+//   * One block of 16 warps per SM (__launch_bounds__(512, 1), at most 128
+//     registers a thread; 219 KB of shared memory at k = 200 with 64-key
+//     buffers, 231 KB at K_MAX with 32-key ones). The scan waits on the
+//     latency of its fragment loads, splits and mma chains more than on the
+//     tensor cores, so 16 warps beat 8: on an H100, builds with 8 warps, or
+//     with one mma per fragment in place of three, showed it.
+//   * Pools start as all-ones keys (empty): every real key is below them, so
+//     when k exceeds the valid items the tail holds the earliest invalid ids
+//     at exactly INVALID_D2, as in the TPU kernel.
+//   * With n_splits > 1, each range's pool goes to a scratch buffer and a
+//     second kernel, one block per query, merges the n_splits sorted pools in
+//     a tree of pairwise merge-path merges (global scratch, ping-pong), exact
+//     and in key order.
 
-#include "nearest.cuh"
+#include <stdint.h>
+
+#include "tf32x3.cuh"
 
 #define TOPK_K_MAX 256
-#define TOPK_MAX_SPLITS 64
 #define TOPK_INVALID_D2 1.7014117331926443e38f  // f32max / 2, exactly
+#define QT 64        // queries per block
+#define IT 128       // items per tile
+#define DK 32        // feature columns per ring stage
+#define LDK (DK + 4) // row stride in shared memory, 4 mod 32: no bank conflicts
+#define STAGES 3
+#define BUF_MAX 64   // candidate buffer per query, when it fits (else 32)
+#define WARPS_M 4    // warps along a tile's queries
+#define WARPS_N 4    // and along its items
+#define THREADS (32 * WARPS_M * WARPS_N)
+#define MF (QT / WARPS_M / 16)  // a warp's m16 fragments (its QT / WARPS_M queries)
+#define NF (IT / WARPS_N / 8)   // and n8 fragments (its IT / WARPS_N items)
+#define MERGE_THREADS 256
+#define KEY_EMPTY 0xffffffffffffffffull
 
-// Insert (v, id) into the sorted pool (P, I) of length k, after every entry
-// that is <= v; the last entry falls out. The caller has checked v < P[k-1].
-__device__ __forceinline__ void pool_insert(float* P, int* I, int k, float v, int id) {
-  int pos = k - 1;
-  while (pos > 0 && P[pos - 1] > v) {
-    P[pos] = P[pos - 1];
-    I[pos] = I[pos - 1];
-    --pos;
-  }
-  P[pos] = v;
-  I[pos] = id;
+typedef unsigned long long u64;
+
+static_assert(MF * NF * 4 <= 32, "a thread's candidates of a tile index one 32-bit mask");
+static_assert(QT == 64, "merge_buffers takes a tile's queries as two 32-lane halves");
+
+// Dynamic shared memory of the scan for k and a buffer of bcap keys a query
+// (ops/topk.py::_smem_bytes): pools, buffers, k-th keys and their d2, the
+// ring, the buffers' counts.
+static size_t scan_smem_bytes(int k, int bcap) {
+  return sizeof(u64) * ((size_t)QT * k + QT * bcap + QT) + sizeof(float) * QT +
+         sizeof(float) * STAGES * (QT + IT) * LDK + sizeof(int) * QT;
 }
 
-__global__ void __launch_bounds__(NR_THREADS)
-topk_scan_kernel(const float* __restrict__ Q, const float* __restrict__ q2, int64_t nq,
-                 int d, const float* __restrict__ X, const float* __restrict__ x2m,
-                 int n, int k, int split_items, float* __restrict__ out_d2,
-                 int* __restrict__ out_id) {
-  __shared__ NearestSmem sm;
-  __shared__ float cand[NR_ROWS][NR_K];
-  extern __shared__ float pool[];  // NR_ROWS * k values, then NR_ROWS * k ids
-  float* P = pool + threadIdx.x / 8 * k;
-  int* I = reinterpret_cast<int*>(pool + NR_ROWS * k) + threadIdx.x / 8 * k;
+// q2 - 2 q.x + x2 before the clamps; xe is x2, or +inf for an invalid item
+// (or one past the range), which makes the result +inf.
+__device__ __forceinline__ float d2_raw(float qn, float acc, float xe) {
+  return fmaf(-2.f, acc, qn) + xe;
+}
 
-  const int r = threadIdx.x >> 3;  // this thread's query in the tile
-  const int g = threadIdx.x & 7;   // its items in a chunk: g, g + 8, g + 16, g + 24
-  const bool resident = d <= NR_D;
-  const int64_t lo = (int64_t)blockIdx.y * split_items;
-  const int hi = lo + split_items < n ? (int)(lo + split_items) : n;
-  float* dst_d2 = out_d2 + (int64_t)blockIdx.y * nq * k;
-  int* dst_id = out_id + (int64_t)blockIdx.y * nq * k;
+__device__ __forceinline__ u64 make_key(float qn, float acc, float xe, int id) {
+  const float v = xe == INFINITY ? TOPK_INVALID_D2
+                                 : fminf(fmaxf(d2_raw(qn, acc, xe), 0.f), TOPK_INVALID_D2);
+  // & 0x7fffffff: a -0.0 from fmaxf keys as +0.0
+  return ((u64)(__float_as_uint(v) & 0x7fffffffu) << 32) | (uint32_t)id;
+}
 
-  for (int64_t row0 = (int64_t)blockIdx.x * NR_ROWS; row0 < nq;
-       row0 += (int64_t)gridDim.x * NR_ROWS) {
-    const int64_t qrow = row0 + r;
-    const float qn = qrow < nq ? q2[qrow] : 0.f;
-    __syncthreads();  // the previous tile's pools are written out
-    for (int t = g; t < k; t += 8) {
-      P[t] = INFINITY;
-      I[t] = -1;
+__device__ __forceinline__ float key_d2(u64 key) { return __uint_as_float((uint32_t)(key >> 32)); }
+__device__ __forceinline__ int key_id(u64 key) { return (int)(uint32_t)key; }
+
+// The o-th smallest of the union of sorted a (la) and sorted b (lb), a first
+// on ties: the merge path's co-rank by binary search.
+__device__ __forceinline__ u64 merge_at(const u64* a, int la, const u64* b, int lb, int o) {
+  int lo = max(0, o - lb), hi = min(o, la);
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] <= b[o - mid - 1]) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
     }
-    if (resident) stage_rows(Q, row0, nq, d, 0, sm);  // after the barrier above
-    for (int64_t k0 = lo; k0 < hi; k0 += NR_K) {
-      float acc[4];
-      if (resident) {
-        cross_chunk<true>(Q, row0, nq, d, X, (int)k0, hi, sm, acc);
+  }
+  const int j = o - lo;
+  return (j >= lb || (lo < la && a[lo] <= b[j])) ? a[lo] : b[j];
+}
+
+// One compare-exchange step of a bitonic network across lanes: element e's
+// partner is e ^ stride (stride < 32), and blocks of `size` with (e & size) == 0
+// sort ascending.
+__device__ __forceinline__ u64 bitonic_step(u64 v, int e, int size, int stride) {
+  const u64 o = __shfl_xor_sync(0xffffffffu, v, stride);
+  return (((e & stride) == 0) == ((e & size) == 0)) ? min(v, o) : max(v, o);
+}
+
+// Ascending bitonic sort of 64 keys in a warp, a = element lane, b = element
+// lane + 32; with only32, of the 32 keys in a.
+__device__ __forceinline__ void warp_sort(u64& a, u64& b, int lane, bool only32) {
+  const int top = only32 ? 32 : 64;
+  for (int size = 2; size <= top; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      if (stride == 32) {  // size 64: a pairs with b in the same lane
+        const u64 lo = min(a, b);
+        b = max(a, b);
+        a = lo;
       } else {
-        cross_chunk<false>(Q, row0, nq, d, X, (int)k0, hi, sm, acc);
+        a = bitonic_step(a, lane, size, stride);
+        if (!only32) b = bitonic_step(b, lane + 32, size, stride);
       }
-      const float kth = P[k - 1];
-      float v[4];
-      bool enter = false;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int64_t j = k0 + g + 8 * q;
-        v[q] = INFINITY;
-        if (j < hi) {
-          const float xn = x2m[j];
-          v[q] = xn >= 0.f ? fminf(fmaxf(qn - 2.f * acc[q] + xn, 0.f), TOPK_INVALID_D2)
-                           : TOPK_INVALID_D2;
-        }
-        enter |= qrow < nq && v[q] < kth;
-      }
-      if (__ballot_sync(0xffffffffu, enter) == 0u) continue;  // warp-uniform
-#pragma unroll
-      for (int q = 0; q < 4; ++q) cand[r][g + 8 * q] = v[q];  // slot = id - k0
+    }
+  }
+}
+
+// Merge into their pools the buffers that hold at least min_cnt keys, and
+// update those queries' k-th key. The queries to merge are dealt out to the
+// warps in turn (the i-th to warp i % 16), so a merge phase costs about one
+// merge whether one query or sixteen need it. Called by the whole block. A
+// pool is rewritten in place, 32
+// outputs a round from the last round down: output o reads pool entries at or
+// below o only, so a round never reads what a later-indexed round wrote.
+__device__ void merge_buffers(u64* pool, u64* buf, u64* thr, float* thr_d2, int* cnt, int k,
+                              int bcap, int min_cnt) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  u64 todo = (u64)__ballot_sync(0xffffffffu, cnt[lane] >= min_cnt && cnt[lane] > 0) |
+             (u64)__ballot_sync(0xffffffffu, cnt[lane + 32] >= min_cnt && cnt[lane + 32] > 0)
+                 << 32;
+  __syncthreads();  // every warp has its list before any count is reset
+  for (int i = 0; todo != 0; ++i, todo &= todo - 1) {  // warp-uniform
+    if (i % (THREADS / 32) != warp) continue;
+    const int r = __ffsll((long long)todo) - 1;
+    const int c = min(cnt[r], bcap);
+    u64* P = pool + r * k;
+    u64* B = buf + r * bcap;
+    u64 a = lane < c ? B[lane] : KEY_EMPTY;
+    u64 b = lane + 32 < c ? B[lane + 32] : KEY_EMPTY;
+    warp_sort(a, b, lane, bcap == 32);
+    B[lane] = a;
+    if (bcap > 32) B[lane + 32] = b;
+    __syncwarp();
+    for (int s = (k - 1) / 32; s >= 0; --s) {
+      const int o = lane + 32 * s;
+      const u64 v = o < k ? merge_at(P, k, B, c, o) : 0ull;
       __syncwarp();
-      if (g == 0 && qrow < nq) {
-        for (int s = 0; s < NR_K; ++s) {
-          const float c = cand[r][s];
-          if (c < P[k - 1]) pool_insert(P, I, k, c, (int)(k0 + s));
-        }
-      }
+      if (o < k) P[o] = v;
       __syncwarp();
+    }
+    if (lane == 0) {
+      const u64 kth = P[k - 1];
+      thr[r] = kth;
+      thr_d2[r] = kth == KEY_EMPTY ? INFINITY : key_d2(kth);
+      cnt[r] = 0;
     }
     __syncwarp();
-    if (qrow < nq) {
-      for (int t = g; t < k; t += 8) {
-        dst_d2[qrow * k + t] = P[t];
-        dst_id[qrow * k + t] = I[t];
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+topk_scan_kernel(const float* __restrict__ Q, const float* __restrict__ q2, int64_t nq,
+                 int d, const float* __restrict__ X, const float* __restrict__ x2m,
+                 int n, int k, int bcap, int split_items, int n_qtiles, bool vec16,
+                 u64* __restrict__ part, float* __restrict__ out_d2,
+                 int* __restrict__ out_id) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  u64* pool = reinterpret_cast<u64*>(smem_raw);
+  u64* buf = pool + QT * k;
+  u64* thr = buf + QT * bcap;                            // each query's k-th key
+  float* thr_d2 = reinterpret_cast<float*>(thr + QT);    // and its d2 (+inf: pool not full)
+  float* ring = thr_d2 + QT;
+  int* cnt = reinterpret_cast<int*>(ring + STAGES * (QT + IT) * LDK);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  // this warp's queries wm*MF*16 .. and items wn*NF*8 .. of the tile
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  const int64_t q0 = (int64_t)(blockIdx.x % n_qtiles) * QT;
+  const int split = blockIdx.x / n_qtiles;
+  const int lo = split * split_items;
+  const int hi = min(lo + split_items, n);
+  const int n_dc = (d + DK - 1) / DK;
+  const int n_units = (hi - lo + IT - 1) / IT * n_dc;  // (item tile, column chunk)
+
+  for (int e = tid; e < QT * k; e += THREADS) pool[e] = KEY_EMPTY;
+  if (tid < QT) {  // a query past nq takes nothing
+    thr[tid] = q0 + tid < nq ? KEY_EMPTY : 0ull;
+    thr_d2[tid] = q0 + tid < nq ? INFINITY : -INFINITY;
+    cnt[tid] = 0;
+  }
+  float qn[MF][2];  // q2 of this thread's rows: (wm*MF + mf)*16 + g + 8h
+#pragma unroll
+  for (int mf = 0; mf < MF; ++mf)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int64_t row = q0 + (wm * MF + mf) * 16 + g + 8 * h;
+      qn[mf][h] = row < nq ? q2[row] : 0.f;
+    }
+
+  auto load = [&](int u) {
+    float* Qs = ring + (u % STAGES) * (QT + IT) * LDK;
+    float* Xs = Qs + QT * LDK;
+    const int j0 = lo + u / n_dc * IT;
+    const int c0 = u % n_dc * DK;
+    if (vec16) {
+      for (int e = tid; e < (QT + IT) * (DK / 4); e += THREADS) {
+        const int rr = e / (DK / 4), col = c0 + 4 * (e % (DK / 4));
+        float* dst = Qs + rr * LDK + 4 * (e % (DK / 4));
+        if (rr < QT) {
+          const bool p = q0 + rr < nq && col < d;
+          cp_async16(dst, p ? Q + (q0 + rr) * d + col : Q, p);
+        } else {
+          const int j = j0 + rr - QT;
+          const bool p = j < hi && col < d;
+          cp_async16(dst, p ? X + (int64_t)j * d + col : X, p);
+        }
       }
+    } else {
+      for (int e = tid; e < (QT + IT) * DK; e += THREADS) {
+        const int rr = e / DK, col = c0 + e % DK;
+        float* dst = Qs + rr * LDK + e % DK;
+        if (rr < QT) {
+          const bool p = q0 + rr < nq && col < d;
+          cp_async4(dst, p ? Q + (q0 + rr) * d + col : Q, p);
+        } else {
+          const int j = j0 + rr - QT;
+          const bool p = j < hi && col < d;
+          cp_async4(dst, p ? X + (int64_t)j * d + col : X, p);
+        }
+      }
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_units) load(s);
+    cp_async_commit();
+  }
+  __syncthreads();  // pools, thresholds and counts initialised
+
+  int u = 0;
+  for (int j0 = lo; j0 < hi; j0 += IT) {
+    float xn[NF][2];  // x2 of this thread's items j0 + (wn*NF + nf)*8 + 2t + e, or +inf
+#pragma unroll
+    for (int nf = 0; nf < NF; ++nf)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = j0 + (wn * NF + nf) * 8 + 2 * t + e;
+        const float x2 = j < hi ? x2m[j] : -1.f;
+        xn[nf][e] = x2 >= 0.f ? x2 : INFINITY;
+      }
+    // acc: the tile's cross terms in f32; p: one column chunk's, on the
+    // tensor cores (tf32x3.cuh: their accumulation truncates)
+    float acc[MF][NF][4], p[MF][NF][4];
+#pragma unroll
+    for (int mf = 0; mf < MF; ++mf)
+#pragma unroll
+      for (int nf = 0; nf < NF; ++nf)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mf][nf][e] = p[mf][nf][e] = 0.f;
+
+    for (int dc = 0; dc < n_dc; ++dc, ++u) {
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();  // this chunk landed; every thread is done with the last one
+      if (u + STAGES - 1 < n_units) load(u + STAGES - 1);
+      cp_async_commit();
+      const float* Qs = ring + (u % STAGES) * (QT + IT) * LDK;
+      const float* Xs = Qs + QT * LDK;
+      auto kstep = [&](int kk) {  // columns kk .. kk + 7 of the chunk
+        FragB3 fb[NF];
+#pragma unroll
+        for (int nf = 0; nf < NF; ++nf) {
+          const float* b = Xs + ((wn * NF + nf) * 8 + g) * LDK + kk + t;
+          split_b(b[0], b[4], fb[nf]);
+        }
+#pragma unroll
+        for (int mf = 0; mf < MF; ++mf) {
+          const float* a = Qs + ((wm * MF + mf) * 16 + g) * LDK + kk + t;
+          const float v[4] = {a[0], a[8 * LDK], a[4], a[8 * LDK + 4]};
+          FragA3 fa;
+          split_a(v, fa);
+#pragma unroll
+          for (int nf = 0; nf < NF; ++nf) mma_3xtf32(p[mf][nf], fa, fb[nf]);
+        }
+      };
+      const int cols = d - dc * DK;  // columns left; zeros past them
+      if (cols >= DK) {
+#pragma unroll
+        for (int kk = 0; kk < DK; kk += 8) kstep(kk);
+      } else {
+        for (int kk = 0; kk < cols; kk += 8) kstep(kk);
+      }
+      add_stage<MF * NF * 4>(&acc[0][0][0], &p[0][0][0]);
+    }
+
+    // Epilogue: candidates below their query's k-th key go to its buffer;
+    // `pend` marks the ones that did not fit yet (bit ((mf*NF + nf)*2 + h)*2 + e).
+    // A key below the k-th key has d2 <= the k-th d2, and the least of the
+    // clamped raw d2 (+inf items as INVALID_D2) is at most its d2, so the
+    // thread forms a query's keys only when that least value passes.
+    uint32_t pend = 0;
+#pragma unroll
+    for (int mf = 0; mf < MF; ++mf)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = (wm * MF + mf) * 16 + g + 8 * h;
+        float least = INFINITY;
+#pragma unroll
+        for (int nf = 0; nf < NF; ++nf)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float v = d2_raw(qn[mf][h], acc[mf][nf][2 * h + e], xn[nf][e]);
+            least = fminf(least, fminf(v, TOPK_INVALID_D2));
+          }
+        if (!(least <= thr_d2[r])) continue;
+        const u64 th = thr[r];
+#pragma unroll
+        for (int nf = 0; nf < NF; ++nf)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = j0 + (wn * NF + nf) * 8 + 2 * t + e;
+            const u64 key = j < hi ? make_key(qn[mf][h], acc[mf][nf][2 * h + e], xn[nf][e], j)
+                                   : KEY_EMPTY;
+            if (key < th) pend |= 1u << (((mf * NF + nf) * 2 + h) * 2 + e);
+          }
+      }
+    while (true) {
+#pragma unroll
+      for (int mf = 0; mf < MF; ++mf)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = (wm * MF + mf) * 16 + g + 8 * h;
+#pragma unroll
+          for (int nf = 0; nf < NF; ++nf)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const uint32_t bit = 1u << (((mf * NF + nf) * 2 + h) * 2 + e);
+              if (!(pend & bit)) continue;
+              const int j = j0 + (wn * NF + nf) * 8 + 2 * t + e;
+              const int slot = atomicAdd(&cnt[r], 1);
+              if (slot < bcap) {
+                buf[r * bcap + slot] = make_key(qn[mf][h], acc[mf][nf][2 * h + e], xn[nf][e], j);
+                pend &= ~bit;
+              }
+            }
+        }
+      if (!__syncthreads_or(pend != 0)) break;
+      // the full buffers, and every one at least half full with them
+      merge_buffers(pool, buf, thr, thr_d2, cnt, k, bcap, bcap / 2);
+      __syncthreads();
+#pragma unroll
+      for (int mf = 0; mf < MF; ++mf)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const u64 th = thr[(wm * MF + mf) * 16 + g + 8 * h];
+#pragma unroll
+          for (int nf = 0; nf < NF; ++nf)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const uint32_t bit = 1u << (((mf * NF + nf) * 2 + h) * 2 + e);
+              const int j = j0 + (wn * NF + nf) * 8 + 2 * t + e;
+              if ((pend & bit) &&
+                  !(make_key(qn[mf][h], acc[mf][nf][2 * h + e], xn[nf][e], j) < th)) {
+                pend &= ~bit;
+              }
+            }
+        }
+    }
+  }
+  cp_async_wait<0>();
+  merge_buffers(pool, buf, thr, thr_d2, cnt, k, bcap, 1);  // what the buffers still hold
+  __syncthreads();
+
+  for (int e = tid; e < QT * k; e += THREADS) {
+    const int r = e / k, o = e % k;
+    const int64_t row = q0 + r;
+    if (row >= nq) continue;
+    const u64 key = pool[e];
+    if (part != nullptr) {
+      part[((int64_t)split * nq + row) * k + o] = key;
+    } else {
+      out_d2[row * k + o] = key_d2(key);
+      out_id[row * k + o] = key_id(key);
     }
   }
 }
 
-// One thread per query: merge the n_splits sorted pools of (n_splits, nq, k)
-// into the first k, split order breaking ties.
-__global__ void topk_merge_kernel(const float* __restrict__ part_d2,
-                                  const int* __restrict__ part_id, int64_t nq, int k,
-                                  int n_splits, float* __restrict__ out_d2,
-                                  int* __restrict__ out_id) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= nq) return;
-  int head[TOPK_MAX_SPLITS];
-  for (int s = 0; s < n_splits; ++s) head[s] = 0;
-  for (int t = 0; t < k; ++t) {
-    int best = -1;
-    float bv = INFINITY;
-    for (int s = 0; s < n_splits; ++s) {
-      if (head[s] >= k) continue;
-      const float v = part_d2[((int64_t)s * nq + i) * k + head[s]];
-      if (best < 0 || v < bv) {
-        best = s;
-        bv = v;
+// One block per query: merge its n_splits sorted pools of (n_splits, nq, k)
+// keys into the first k, by rounds of pairwise merge-path merges through the
+// query's two scratch buffers (ceil(n/2) and ceil(n/4) pools), keys in order.
+__global__ void __launch_bounds__(MERGE_THREADS)
+topk_merge_kernel(const u64* __restrict__ part, int64_t nq, int k, int n_splits,
+                  u64* __restrict__ scratch, float* __restrict__ out_d2,
+                  int* __restrict__ out_id) {
+  const int64_t i = blockIdx.x;
+  const int h1 = (n_splits + 1) / 2, h2 = (h1 + 1) / 2;
+  u64* const buf1 = scratch + i * (int64_t)(h1 + h2) * k;
+  u64* const buf2 = buf1 + (int64_t)h1 * k;
+  const u64* src = part + i * k;
+  int64_t stride = nq * k;
+  int lists = n_splits;
+  bool second = false;
+  while (lists > 1) {
+    const int outs = (lists + 1) / 2;
+    u64* dst = second ? buf2 : buf1;
+    for (int64_t e = threadIdx.x; e < (int64_t)outs * k; e += MERGE_THREADS) {
+      const int p = (int)(e / k), o = (int)(e % k);
+      const u64* a = src + 2 * p * stride;
+      const int lb = 2 * p + 1 < lists ? k : 0;
+      const u64 v = merge_at(a, k, a + stride, lb, o);
+      if (outs == 1) {
+        out_d2[i * k + o] = key_d2(v);
+        out_id[i * k + o] = key_id(v);
+      } else {
+        dst[(int64_t)p * k + o] = v;
       }
     }
-    const int64_t at = ((int64_t)best * nq + i) * k + head[best];
-    out_d2[i * k + t] = bv;
-    out_id[i * k + t] = part_id[at];
-    ++head[best];
+    __syncthreads();  // this round's pools are written
+    src = dst;
+    stride = k;
+    lists = outs;
+    second = !second;
   }
 }
 
 // Launches on `stream`; allocates nothing, does not synchronise. With
-// n_splits == 1 the scan writes the result to (out_d2, out_id) and part_d2 /
-// part_id are not read; otherwise the scan writes (n_splits, nq, k) pools to
-// them and the merge writes the result. Returns cudaGetLastError() (0 on
-// success).
+// n_splits == 1 the scan writes the result to (out_d2, out_id) and part /
+// scratch are not read; otherwise the scan writes (n_splits, nq, k) keys to
+// part, and the merge, with scratch of nq * (ceil(n_splits / 2) +
+// ceil(n_splits / 4)) * k keys, writes the result. Returns cudaGetLastError()
+// (0 on success).
 extern "C" int srml_topk(const void* Q, const void* q2, long long nq, int d,
                          const void* X, const void* x2m, int n, int k, int n_splits,
-                         int split_items, void* part_d2, void* part_id, void* out_d2,
-                         void* out_id, int n_blocks, void* stream) {
+                         int split_items, void* part, void* scratch, void* out_d2,
+                         void* out_id, void* stream) {
   if (nq <= 0) return (int)cudaGetLastError();
-  if (k < 1 || k > TOPK_K_MAX || n_splits < 1 || n_splits > TOPK_MAX_SPLITS) {
+  if (k < 1 || k > TOPK_K_MAX || n_splits < 1 || d < 1 || split_items < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = (size_t)NR_ROWS * k * (sizeof(float) + sizeof(int));
-  cudaError_t err = cudaFuncSetAttribute(
-      topk_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const long long n_qtiles = (nq + QT - 1) / QT;
+  if (n_qtiles * n_splits >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  int dev = 0, max_smem = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
   if (err != cudaSuccess) return (int)err;
+  const int bcap = scan_smem_bytes(k, BUF_MAX) <= (size_t)max_smem ? BUF_MAX : 32;
+  const size_t smem = scan_smem_bytes(k, bcap);
+  err = cudaFuncSetAttribute(topk_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const bool vec16 = d % 4 == 0 && (uintptr_t)Q % 16 == 0 && (uintptr_t)X % 16 == 0;
   const bool merge = n_splits > 1;
-  topk_scan_kernel<<<dim3(n_blocks, n_splits), NR_THREADS, smem, (cudaStream_t)stream>>>(
+  topk_scan_kernel<<<(unsigned)(n_qtiles * n_splits), THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)Q, (const float*)q2, (int64_t)nq, d, (const float*)X,
-      (const float*)x2m, n, k, split_items, (float*)(merge ? part_d2 : out_d2),
-      (int*)(merge ? part_id : out_id));
+      (const float*)x2m, n, k, bcap, split_items, (int)n_qtiles, vec16,
+      merge ? (u64*)part : nullptr, (float*)out_d2, (int*)out_id);
   err = cudaGetLastError();
   if (err != cudaSuccess || !merge) return (int)err;
-  const int threads = 128;
-  topk_merge_kernel<<<(unsigned)((nq + threads - 1) / threads), threads, 0,
-                      (cudaStream_t)stream>>>(
-      (const float*)part_d2, (const int*)part_id, (int64_t)nq, k, n_splits,
-      (float*)out_d2, (int*)out_id);
+  topk_merge_kernel<<<(unsigned)nq, MERGE_THREADS, 0, (cudaStream_t)stream>>>(
+      (const u64*)part, (int64_t)nq, k, n_splits, (u64*)scratch, (float*)out_d2,
+      (int*)out_id);
   return (int)cudaGetLastError();
 }

@@ -13,6 +13,8 @@
 #   count.cu  srml_count                     (ops/count.py)
 #   topk.cu   srml_topk                      (ops/topk.py)
 #   hist.cu   srml_node_bin_hist, srml_segment_hist  (ops/histogram.py)
+# Every source may include the headers beside it (nearest.cuh, tf32x3.cuh);
+# each library's hash covers them all.
 #
 # Every pointer and the stream cross as ctypes.c_void_p; each C entry point
 # returns cudaGetLastError(), and `check` raises when it is not 0.
@@ -51,7 +53,7 @@ ENTRIES = {
     "lloyd": ("lloyd", "srml_lloyd_step", [_P, _P, _L, _I, _P, _P, _I, _L, _I, _P, _P, _P]),
     "assign": ("assign", "srml_assign", [_P, _L, _I, _P, _P, _I, _P, _I, _P]),
     "count": ("count", "srml_count", [_P, _P, _L, _I, _P, _P, _I, _F, _P, _I, _P]),
-    "topk": ("topk", "srml_topk", [_P, _P, _L, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P]),
+    "topk": ("topk", "srml_topk", [_P, _P, _L, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
     "node_bin_hist": ("hist", "srml_node_bin_hist",
                       [_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _L, _I, _I, _P, _P, _P]),
     "segment_hist": ("hist", "srml_segment_hist",

@@ -11,9 +11,11 @@
 #     torch.backends.cuda.matmul.allow_tf32 = False
 #     torch.backends.cudnn.allow_tf32 = False
 #
-# The hand-written kernels (csrc/) compute in f32 FMA on the CUDA cores. Only
-# parity_precision="highest" is honored; `fast_math` (reduced-precision ranking
-# products) is not implemented yet and raises.
+# The hand-written kernels (csrc/) compute at f32 accuracy: in f32 FMA on the
+# CUDA cores, or (the top-k and Gram kernels) in 3xTF32 on the tensor cores,
+# each f32 operand split into two TF32 parts and three products summed in f32
+# (csrc/tf32x3.cuh). Only parity_precision="highest" is honored; `fast_math`
+# (reduced-precision ranking products) is not implemented yet and raises.
 #
 
 from __future__ import annotations

@@ -8,14 +8,17 @@
 # `fused_topk` launches the CUDA kernel csrc/topk.cu for tensors on the card,
 # always (the JAX package's `knn.pallas_min_items` gate is a fact about the
 # TPU), and runs `topk_plain`, the same function in plain PyTorch, for tensors
-# on the CPU. The kernel's design and its bound on the H100 are in the
-# source's header. The TPU kernel's tile geometry (q_block, item_tile, the VMEM
-# budget) has no counterpart: the card's geometry is fixed in the source, and
-# the wrapper only splits the items so that a few query tiles fill the card.
+# on the CPU. The kernel takes its distance products in 3xTF32 on the tensor
+# cores, at f32 accuracy; its design and its bound on the H100 are in the
+# source's header. The TPU kernel's tile geometry (q_block, item_tile, the
+# VMEM budget) has no counterpart: the card's geometry is fixed in the source,
+# and the wrapper only splits the items into ranges (`_splits`) so that query
+# tiles x ranges fill whole waves of the card's resident blocks.
 #
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -25,8 +28,12 @@ from .knn import _block_sq_dists, center_norms_sq, query_blocks
 from .selection import mask_invalid, select_topk
 
 K_MAX = 256  # the kernel's largest k (TOPK_K_MAX in csrc/topk.cu)
-MAX_SPLITS = 64  # TOPK_MAX_SPLITS in csrc/topk.cu
-MIN_SPLIT_ITEMS = 4096  # a split scans at least this many items
+Q_TILE = 64  # csrc/topk.cu QT: queries per block
+ITEM_TILE = 128  # csrc/topk.cu IT: items per tile of a range
+MAX_SPLITS = 512  # item ranges at most
+MIN_SPLIT_ITEMS = 4096  # a range scans at least this many items
+MAX_WAVES = 16  # past this many waves the rule stops splitting for whole waves
+SMEM_BLOCK = 232_448  # H100: shared memory one block can use
 # Pins the number of item ranges (1 to MAX_SPLITS) in place of `_splits`'s
 # rule, for timing the rule against one range; None keeps the rule.
 _pin_splits: Optional[int] = None
@@ -52,18 +59,41 @@ def topk_plain(
     return d2_out, id_out
 
 
-def _splits(nq: int, n: int, sms: int) -> Tuple[int, int]:
-    """(n_splits, items per split, a whole number of 32-item chunks). The items
-    are split only when the query tiles alone would give the card fewer than
-    four blocks per SM, unless `_pin_splits` pins the count."""
+def _buffer_keys(k: int) -> int:
+    """Candidate keys buffered per query at k: 64 where they fit beside the
+    pools in one block's shared memory, else 32 (csrc/topk.cu srml_topk)."""
+    return 64 if _smem_bytes(k, 64) <= SMEM_BLOCK else 32
+
+
+def _smem_bytes(k: int, buffer_keys: Optional[int] = None) -> int:
+    """Dynamic shared memory of the scan kernel at k (csrc/topk.cu
+    scan_smem_bytes): the pools of 64 queries (k 8-byte keys each), their
+    buffers, k-th keys and k-th d2, the 3-stage ring of (64 + 128) x 36
+    floats, and the buffers' counts."""
+    b = _buffer_keys(k) if buffer_keys is None else buffer_keys
+    ring = 3 * (Q_TILE + ITEM_TILE) * 36
+    return 8 * (Q_TILE * k + Q_TILE * b + Q_TILE) + 4 * (Q_TILE + ring + Q_TILE)
+
+
+def _splits(nq: int, n: int, k: int, sms: int) -> Tuple[int, int]:
+    """(n_splits, items per split, a whole number of item tiles). The fewest
+    ranges for which query tiles x ranges is a whole number of waves of the
+    card's resident blocks, unless that takes more than MAX_WAVES waves (then
+    enough ranges for MAX_WAVES), each range at least MIN_SPLIT_ITEMS items;
+    `_pin_splits` pins the count in place of the rule. One block is resident
+    per SM (its shared memory at k = 200; its 512 threads' registers at every
+    k)."""
     n_splits = _pin_splits
     if n_splits is None:
-        tiles = -(-nq // _cuda.NR_ROWS)
-        n_splits = max(1, min(MAX_SPLITS, -(-4 * sms // tiles), n // MIN_SPLIT_ITEMS))
+        tiles = -(-nq // Q_TILE)
+        n_splits = sms // math.gcd(tiles, sms)
+        if tiles * n_splits > MAX_WAVES * sms:
+            n_splits = -(-MAX_WAVES * sms // tiles)
+        n_splits = max(1, min(n_splits, MAX_SPLITS, n // MIN_SPLIT_ITEMS))
     elif not 1 <= n_splits <= MAX_SPLITS:
         raise ValueError(f"_pin_splits must be 1 to {MAX_SPLITS}, got {n_splits}")
     per = -(-n // n_splits)
-    per = -(-per // _cuda.NR_ROWS) * _cuda.NR_ROWS
+    per = -(-per // ITEM_TILE) * ITEM_TILE
     return -(-n // per), per
 
 
@@ -98,16 +128,17 @@ def fused_topk(
     x2m = torch.where(valid, x2, -1.0)
     d2_out = torch.empty((nq, k), dtype=torch.float32, device=Q.device)
     id_out = torch.empty((nq, k), dtype=torch.int32, device=Q.device)
-    n_splits, per = _splits(nq, n, _cuda.sm_count(Q))
-    part_d2, part_id = d2_out, id_out
+    n_splits, per = _splits(nq, n, k, _cuda.sm_count(Q))
+    part = scratch = d2_out  # not read with one range
     if n_splits > 1:
-        part_d2 = torch.empty((n_splits, nq, k), dtype=torch.float32, device=Q.device)
-        part_id = torch.empty((n_splits, nq, k), dtype=torch.int32, device=Q.device)
-    n_blocks = max(1, min(-(-nq // _cuda.NR_ROWS), 8 * _cuda.sm_count(Q)))
+        # each range's pool of k keys, and the merge's two rounds of scratch
+        half = -(-n_splits // 2)
+        part = torch.empty((n_splits, nq, k), dtype=torch.int64, device=Q.device)
+        scratch = torch.empty((nq, half + -(-half // 2), k), dtype=torch.int64, device=Q.device)
     _cuda.check(
         fn(Q.data_ptr(), q2.data_ptr(), nq, d, X.data_ptr(), x2m.data_ptr(), n, k,
-           n_splits, per, part_d2.data_ptr(), part_id.data_ptr(), d2_out.data_ptr(),
-           id_out.data_ptr(), n_blocks, _cuda.stream_of(Q)),
+           n_splits, per, part.data_ptr(), scratch.data_ptr(), d2_out.data_ptr(),
+           id_out.data_ptr(), _cuda.stream_of(Q)),
         "top-k kernel",
     )
     fused_topk.launches += 1

@@ -7,12 +7,14 @@
 #
 # `xtx` and `xtxy` launch the CUDA kernels of csrc/xtx.cu for tensors on the
 # card, and run `xtx_plain` / `xtxy_plain`, the same functions in plain PyTorch,
-# for tensors on the CPU. The kernels' design and bound on the H100 are in the
+# for tensors on the CPU. The kernels take their products in 3xTF32 on the
+# tensor cores, at f32 accuracy; their design and bound on the H100 are in the
 # source's header.
 #
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -20,8 +22,12 @@ import torch
 from . import _cuda
 from ._precision import pdot
 
-TILE = 64  # csrc/xtx.cu: S2 tile edge
+TILE = 128  # csrc/xtx.cu: S2 tile edge
+ROWS_STEP = 32  # csrc/xtx.cu RSTEP: rows per ring stage
 ROWS_PER_FLUSH = 1024  # csrc/xtx.cu: rows per inner accumulator flush
+# csrc/xtx.cu SMEM_BYTES: a 4-stage ring of two 32 x (128 + 8) stripes and
+# 72 outer sums per thread of 256; one block per SM
+SMEM_BYTES = 4 * (4 * 2 * ROWS_STEP * (TILE + 8) + 72 * 256)
 
 
 def _valid_rows(X: torch.Tensor, n_valid: int) -> torch.Tensor:
@@ -37,12 +43,14 @@ def xtx_plain(X: torch.Tensor, n_valid: int) -> Tuple[torch.Tensor, torch.Tensor
 
 
 def _chunks(n_valid: int, n_pairs: int, sms: int) -> Tuple[int, int]:
-    """(rows per chunk, chunks): about four blocks per SM over tiles x chunks,
-    each chunk at least one inner flush of rows."""
-    most = max(1, -(-n_valid // ROWS_PER_FLUSH))
-    n_chunks = min(most, max(1, -(-4 * sms // n_pairs)))
+    """(rows per chunk, chunks): tiles x chunks a whole number of waves of the
+    card's resident blocks (one per SM), each chunk at least one inner flush
+    of rows, a whole number of ring stages."""
+    whole = sms // math.gcd(n_pairs, sms)
+    most = max(1, n_valid // ROWS_PER_FLUSH)
+    n_chunks = min(most, whole)
     rows = -(-max(n_valid, 1) // n_chunks)
-    rows = -(-rows // 32) * 32
+    rows = -(-rows // ROWS_STEP) * ROWS_STEP
     return rows, -(-max(n_valid, 1) // rows)
 
 

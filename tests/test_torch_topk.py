@@ -213,22 +213,161 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(Q, X, valid, k, x2, exc):
 
 
 @pytest.mark.parametrize(
-    "nq, n, sms, pin, splits",
-    [(4096, 8_388_608, 132, None, 5), (100, 50_003, 132, None, 12), (77, 5003, 132, None, 1),
-     (40_000, 10**6, 132, None, 1), (1, 10**7, 132, None, 64), (100, 8_388_608, 132, None, 64),
-     (100, 8_388_608, 132, 1, 1), (100, 8_388_608, 132, 7, 7), (4096, 8_388_608, 132, 64, 64)],
+    "nq, n, k, sms, pin, splits",
+    [(4096, 8_388_608, 10, 132, None, 33), (100, 50_003, 200, 132, None, 12),
+     (77, 5003, 10, 132, None, 1), (40_000, 10**6, 10, 132, None, 4),
+     (1, 10**7, 1, 132, None, 132), (100, 8_388_608, 200, 132, None, 66),
+     (100, 8_388_608, 200, 132, 1, 1), (100, 8_388_608, 200, 132, 7, 7),
+     (4096, 8_388_608, 10, 132, 64, 64)],
 )
-def test_item_splits_cover_the_items_in_whole_chunks(nq, n, sms, pin, splits, monkeypatch):
-    """The rule's split counts, and a pinned count (`_pin_splits`) in its place."""
+def test_item_splits_cover_the_items_in_whole_chunks(nq, n, k, sms, pin, splits, monkeypatch):
+    """The rule's split counts, and a pinned count (`_pin_splits`) in its place;
+    the ranges cover the items in whole 128-item tiles."""
     monkeypatch.setattr(topk, "_pin_splits", pin)
-    n_splits, per = topk._splits(nq, n, sms)
+    n_splits, per = topk._splits(nq, n, k, sms)
     assert n_splits == splits
-    assert per % 32 == 0 and (n_splits - 1) * per < n <= n_splits * per
+    assert per % topk.ITEM_TILE == 0 and (n_splits - 1) * per < n <= n_splits * per
     assert n_splits == 1 or pin is not None or per >= topk.MIN_SPLIT_ITEMS
+
+
+@pytest.mark.parametrize(
+    "nq, n, k, sms",
+    [(100, 8_388_608, 200, 132), (4096, 8_388_608, 10, 132), (1, 10**7, 1, 132),
+     (65, 8_388_608, 256, 132), (1000, 8_388_608, 33, 132), (300, 2_000_000, 100, 114),
+     (2048, 8_388_608, 10, 78)],
+)
+def test_item_ranges_fill_whole_waves(nq, n, k, sms):
+    """Where the items allow it, query tiles x ranges is a whole number of
+    waves of the card's resident blocks, at most MAX_WAVES of them."""
+    n_splits, _ = topk._splits(nq, n, k, sms)
+    tiles = -(-nq // topk.Q_TILE)
+    assert n // n_splits >= topk.MIN_SPLIT_ITEMS
+    assert (tiles * n_splits) % sms == 0  # one resident block per SM
+    assert tiles * n_splits <= topk.MAX_WAVES * sms
+
+
+@pytest.mark.parametrize("nq, n, k, sms", [(40_000, 8_388_608, 10, 132), (4000, 10**7, 256, 132)])
+def test_item_ranges_past_the_wave_cap(nq, n, k, sms):
+    """When whole waves would take more than MAX_WAVES, the rule takes just
+    enough ranges for MAX_WAVES waves."""
+    n_splits, _ = topk._splits(nq, n, k, sms)
+    tiles = -(-nq // topk.Q_TILE)
+    assert tiles * n_splits >= topk.MAX_WAVES * sms
+    assert tiles * (n_splits - 1) < topk.MAX_WAVES * sms
+
+
+@pytest.mark.parametrize("k, buffer_keys", [(1, 64), (10, 64), (33, 64), (200, 64), (226, 64),
+                                            (227, 32), (topk.K_MAX, 32)])
+def test_scan_shared_memory_fits_a_block(k, buffer_keys):
+    """The scan's pools, buffers and ring fit one block's 227 KB at every k up
+    to K_MAX: 64-key candidate buffers up to k = 226, 32-key ones above."""
+    assert topk._buffer_keys(k) == buffer_keys
+    assert topk._smem_bytes(k) <= topk.SMEM_BLOCK
+    assert topk._smem_bytes(k) - topk._smem_bytes(1, buffer_keys) == 8 * topk.Q_TILE * (k - 1)
 
 
 @pytest.mark.parametrize("pin", [0, topk.MAX_SPLITS + 1])
 def test_a_pinned_split_count_out_of_range_raises(pin, monkeypatch):
     monkeypatch.setattr(topk, "_pin_splits", pin)
     with pytest.raises(ValueError, match="_pin_splits"):
-        topk._splits(100, 8_388_608, 132)
+        topk._splits(100, 8_388_608, 200, 132)
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 explicit mantissa bits), to nearest with ties away
+    from zero, as cvt.rna.tf32.f32 rounds: mantissa masking on the bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_truncated(x):
+    """x's TF32 part as the tensor cores read an f32 operand: the low 13 bits
+    dropped."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _tf32x3_matmul(a, b):
+    """a @ b as the kernels' 3xTF32 products take it (csrc/tf32x3.cuh): each
+    operand split into hi, rounded to TF32, and lo = x - hi, of which the
+    tensor cores read the TF32 part (the low 13 bits dropped); lo.hi + hi.lo
+    summed first and hi.hi added last, every sum in f32."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32_truncated(a - a_hi), _tf32_truncated(b - b_hi)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits():
+    x = torch.tensor([1.0, 1.0 + 2.0**-11, 1.0 + 2.0**-10 + 2.0**-11, -(1.0 + 2.0**-11), 3.0e-3])
+    r = _tf32(x)
+    assert r[0] == 1.0 and r[1] == 1.0 + 2.0**-10  # a tie rounds away from zero
+    assert r[2] == 1.0 + 2.0**-9 and r[3] == -(1.0 + 2.0**-10)
+    assert (r.view(torch.int32) & 0x1FFF).eq(0).all() and abs(float(r[4]) / 3.0e-3 - 1) < 2.0**-11
+
+
+@pytest.mark.parametrize(
+    "n, d, nq, k, mask_frac",
+    [(997, 1, 33, 10, 0.2), (1500, 3, 65, 33, 0.0), (603, 33, 17, 1, 0.5), (250, 127, 9, 64, 0.1),
+     (700, 256, 12, 200, 0.0)],
+)
+def test_tf32x3_distances_keep_the_kernels_accuracy(n, d, nq, k, mask_frac):
+    """The top-k kernel's numerical design, emulated in plain PyTorch: d2 from
+    3xTF32 cross terms, selected by the (d2, id) key, is within the kernel's
+    tolerance of f64 (1e-5 (q2 + max x2)), with ids equal wherever f64
+    neighbors are more than 2 tol apart, and agrees with the JAX package's
+    Pallas kernel in interpret mode as the f32 version does."""
+    from spark_rapids_ml_torch.ops.selection import mask_invalid, select_topk
+
+    Q, X, valid = _data(n, d, nq, seed=3 * n + d, mask_frac=mask_frac)
+    Qt, Xt = torch.from_numpy(Q), torch.from_numpy(X)
+    q2, x2 = (Qt * Qt).sum(1), (Xt * Xt).sum(1)
+    cross = _tf32x3_matmul(Qt, Xt.T)
+    d2 = (q2[:, None] - 2.0 * cross + x2[None, :]).clamp(min=0.0)
+    d2, ids = select_topk(mask_invalid(d2, torch.from_numpy(valid)[None, :]), k)
+    want = jax_ps.fused_topk(jnp.asarray(Q), jnp.asarray(X), jnp.asarray(valid), k, interpret=True)
+    _check(d2.numpy(), ids.numpy(), Q, X, valid, k, other=tuple(np.asarray(a) for a in want))
+
+
+def _hard_data(kind, n, d, nq, seed, tail):
+    """The selection's hard inputs, as chip_smoke.py's phase 2a builds them:
+    "descending", items at radii falling with their id around queries at (or
+    within 1e-3 of) the origin, so each item is nearer than every one before
+    it and every candidate passes the running k-th key; "duplicate", every
+    item the same point, ties only. With `tail`, the last quarter invalid."""
+    rng = np.random.default_rng(seed)
+    if kind == "descending":
+        u = rng.standard_normal((n, d))
+        u /= np.linalg.norm(u, axis=1, keepdims=True)
+        X = (np.linspace(20.0, 1.0, n)[:, None] * u).astype(np.float32)
+        Q = (1e-3 * rng.standard_normal((nq, d))).astype(np.float32)
+        Q[0] = 0.0
+    else:
+        X = np.repeat(rng.normal(0.0, 3.0, (1, d)), n, axis=0).astype(np.float32)
+        Q = rng.normal(0.0, 3.0, (nq, d)).astype(np.float32)
+    valid = np.ones(n, bool)
+    if tail:
+        valid[n - n // 4 :] = False
+    return Q, X, valid
+
+
+@pytest.mark.parametrize(
+    "kind, n, d, nq, k, tail",
+    [("descending", 700, 3, 5, 200, False), ("descending", 515, 33, 3, 64, True),
+     ("duplicate", 300, 4, 7, 100, True), ("duplicate", 150, 1, 2, 200, False)],
+)
+def test_hard_selection_inputs_match_the_jax_package(kind, n, d, nq, k, tail):
+    """Both sides of chip_smoke.py's hard top-k cases pinned on the CPU: the
+    plain version against the JAX package's Pallas kernel in interpret mode;
+    on all-duplicate items the ids are the valid ids in order, then the
+    earliest invalid ones at the sentinel, in both packages."""
+    Q, X, valid = _hard_data(kind, n, d, nq, seed=n + k, tail=tail)
+    want = tuple(np.asarray(a) for a in jax_ps.fused_topk(
+        jnp.asarray(Q), jnp.asarray(X), jnp.asarray(valid), k, interpret=True))
+    d2, ids = _port(Q, X, valid, k, fn=topk.topk_plain)
+    _check(d2, ids, Q, X, valid, k, other=want)
+    if kind == "descending":  # query 0 at the origin: the last valid items, nearest first
+        last = np.nonzero(valid)[0][::-1][: min(k, int(valid.sum()))]
+        np.testing.assert_array_equal(ids[0, : len(last)], last)
+    else:
+        order = np.concatenate([np.nonzero(valid)[0], np.nonzero(~valid)[0]])[: min(k, n)]
+        np.testing.assert_array_equal(ids, np.tile(order, (nq, 1)))
+        np.testing.assert_array_equal(want[1], np.tile(order, (nq, 1)))

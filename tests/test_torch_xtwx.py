@@ -163,3 +163,85 @@ def test_xtxy_cpu_wrapper_runs_the_plain_version_and_counts_no_launch():
 def test_xtxy_wrapper_rejects_what_the_kernel_does_not_take(X, y, n_valid, exc):
     with pytest.raises(exc):
         xtwx.xtxy(X, y, n_valid)
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 explicit mantissa bits), to nearest with ties away
+    from zero, as cvt.rna.tf32.f32 rounds: mantissa masking on the bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_truncated(x):
+    """x's TF32 part as the tensor cores read an f32 operand: the low 13 bits
+    dropped."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _tf32x3_matmul(a, b):
+    """a @ b as the kernels' 3xTF32 products take it (csrc/tf32x3.cuh): each
+    operand split into hi, rounded to TF32, and lo = x - hi, of which the
+    tensor cores read the TF32 part (the low 13 bits dropped); lo.hi + hi.lo
+    summed first and hi.hi added last, every sum in f32."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32_truncated(a - a_hi), _tf32_truncated(b - b_hi)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def _rel_err(a, ref):
+    a, ref = np.asarray(a, np.float64), np.asarray(ref, np.float64)
+    return float(np.abs(a - ref).max() / max(np.abs(ref).max(), 1e-30))
+
+
+@pytest.mark.parametrize("d", [1, 7, 129, 257])
+@pytest.mark.parametrize("n, n_valid", [(5003, 5003), (5003, 4099)])
+def test_tf32x3_gram_keeps_the_kernels_accuracy(d, n, n_valid):
+    """The Gram kernel's numerical design, emulated in plain PyTorch: the
+    statistics as entries of the Gram of Z = [X | y | 1], in 3xTF32, are within
+    twice the f32 plain version's error against f64, plus 1e-6 (the bound
+    chip_smoke.py holds the kernel to), and agree with the JAX package's Pallas
+    kernel in interpret mode."""
+    X = _data(n, d, seed=60 + d) + np.float32(1.5)  # offset columns: s1 matters
+    y = _label(X, seed=61 + d)
+    Z = np.concatenate([X, y[:, None], np.ones((n, 1), np.float32)], axis=1)
+    Z[n_valid:] = 0.0  # the select the kernel's copies make
+    Zt = torch.from_numpy(Z)
+    G = _tf32x3_matmul(Zt.T.contiguous(), Zt).numpy()
+    got = (G[:d, :d], G[:d, d + 1], G[:d, d], G[d, d + 1], G[d, d])  # S2, s1, Xᵀy, Σy, Σy²
+    plain = [t.numpy() for t in xtwx.xtxy_plain(torch.from_numpy(X), torch.from_numpy(y), n_valid)]
+    Xv, yv = X[:n_valid].astype(np.float64), y[:n_valid].astype(np.float64)
+    ref = (Xv.T @ Xv, Xv.sum(0), Xv.T @ yv, yv.sum(), yv @ yv)
+    for name, g, p, r in zip(("S2", "s1", "Xty", "sum y", "sum y^2"), got, plain, ref):
+        e_g, e_p = _rel_err(g, r), _rel_err(p, r)
+        assert e_g <= 2 * e_p + 1e-6, (name, e_g, e_p)
+    want = xtxy_pallas(
+        jnp.asarray(X), jnp.asarray(y), n_valid, precision=jax.lax.Precision.HIGHEST,
+        interpret=True,
+    )
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
+@pytest.mark.parametrize(
+    "n_valid, n_pairs, sms, chunks",
+    [(8_388_608, 3, 132, 44), (8_388_608, 1, 132, 132), (8_388_608, 6, 132, 22),
+     (8_388_608, 10, 132, 66), (9884, 3, 132, 9), (0, 3, 132, 1), (1, 1, 132, 1),
+     (50_000_000, 3, 114, 38)],
+)
+def test_gram_chunks_fill_whole_waves(n_valid, n_pairs, sms, chunks):
+    """The Gram kernel's launch plan: tiles x chunks a whole number of waves of
+    one block per SM where the rows allow it, each chunk at least one inner
+    flush of rows and a whole number of ring stages, the chunks covering the
+    rows."""
+    rows, n_chunks = xtwx._chunks(n_valid, n_pairs, sms)
+    assert n_chunks == chunks
+    assert rows % xtwx.ROWS_STEP == 0 and rows * (n_chunks - 1) < max(n_valid, 1) <= rows * n_chunks
+    if n_valid >= n_chunks * xtwx.ROWS_PER_FLUSH * 2:
+        assert (n_pairs * n_chunks) % sms == 0
+    assert n_chunks == 1 or rows >= xtwx.ROWS_PER_FLUSH
+
+
+def test_gram_shared_memory_fits_a_block():
+    """The 4-stage ring of two 32 x 136 stripes and the outer sums fit one
+    block's 227 KB on an H100."""
+    assert xtwx.SMEM_BYTES <= 232_448
