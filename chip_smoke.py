@@ -23,7 +23,14 @@ non-zero exit code; nothing is caught):
    off every row step, chunk and tile edge) and the top-k selection's hard
    cases (TOPK_HARD: items in descending distance order, all-duplicate items,
    k 1 / 200 / K_MAX, nq around the 64-query tile, n off the 128-item tile and
-   n < k, d off the mma depth of 8, masked tails).
+   n < k, d off the mma depth of 8, masked tails). The top-k kernel's bfloat16
+   and int8 forms are held to their plain versions at the same shapes and
+   TOPK_HARD (TOPK_INT8_RTOL, topk_narrow_rtol), and at both kNN traffics of
+   the main shape, with the re-rank invariant (the returned neighbours are
+   parity_rerank_sq of their ids, bit for bit). Non-finite inputs: count and
+   the three top-k forms with NaN query and item rows against their plain
+   versions, assign and Lloyd with NaN rows (center 0). The histogram kernels
+   on real-valued stats: three launches bit-equal.
 3. Main paths, through the estimators, each driven with every kernel's launch
    counter zeroed just before it and read just after; every kernel of a path
    must have run in it:
@@ -43,7 +50,11 @@ non-zero exit code; nothing is caught):
      rows of X as queries, a pandas frame), and again at k = 10 for 4,096
      queries (2,048 rows of X, 2,048 fresh rows of its mixture) with a user id
      column; each self-query's first neighbor must be itself, and each answer
-     the top-k kernel's of phase 2b.
+     the top-k kernel's of phase 2b. Then the same four calls with
+     knn_precision bfloat16 and int8 (the kernel's narrow forms and the
+     exact f32 re-rank): recall@k against the f32 answer at least
+     KNN_RECALL_GATE, every returned distance within TOPK_RTOL of f64 on a
+     sample of queries, self-queries first.
    * RandomForestClassifier (BASELINE.json configs[3], 50,000,000 x 64 f32
      from the benchmark's ClassificationDataGen recipe, fed as a pandas frame
      of 64 scalar columns, with the benchmark's numTrees 20, maxDepth 6) fit
@@ -60,15 +71,19 @@ non-zero exit code; nothing is caught):
    port's spans (spark_rapids_ml_torch.utils.record_spans), which synchronize
    the card at each stage's ends.
 4. Times: CUDA events, warm-up and the median of 10 runs (3 for topk at
-   4,096 queries and for topk in one item range, whose calls take seconds),
+   4,096 queries and for topk in one item range, whose calls take seconds,
+   3 for every plain version and for count's library figure; 2 with no
+   warm-up for the narrow forms' plain versions at 4,096 queries),
    of each kernel, its plain version and the PyTorch
    calls that compute the same function where there are some, at the main
    paths' shapes (topk at both kNN traffics with the items' cached norms, as
    kneighbors calls it, and with its item ranges pinned to one against the
-   wrapper's rule); each kernel's bound from the card's
+   wrapper's rule; its narrow forms at their pool widths, with the exact
+   re-rank beside them and a bf16 cuBLAS library figure); each kernel's
+   bound from the card's
    published peaks (f32 on the CUDA cores, and for the 3xTF32 kernels, xtx,
    xtxy and topk, also three TF32 operations per f32 operation on the tensor
-   cores); the top-k and Gram kernels' shared memory, launch plan and ptxas
+   cores; the narrow forms' products at the dense bf16 and int8 peaks); the top-k and Gram kernels' shared memory, launch plan and ptxas
    report; the cost of the Lloyd loop's per-iteration host sync.
 
 The last three lines of standard output are one JSON object with a row per
@@ -111,6 +126,7 @@ NQ_KNN10 = 4096
 K_KNN10 = 10
 KNN_F64_QUERIES = 256  # of the 4,096 queries held to f64
 KNN_LIB_BLOCK = 256  # queries per cuBLAS product of the library figure (8.6 GB tile)
+COUNT_LIB_BLOCK = 4096  # queries per cuBLAS product of the count's library figure (4.3 GB tile)
 # RandomForest: BASELINE.json configs[3] (RandomForestClassifier, 50M x 64) with
 # the repo benchmark's parameters (benchmark/benchmark/bench_random_forest.py:
 # numTrees 20, maxDepth 6, maxBins 32 the default, featureSubsetStrategy auto,
@@ -133,6 +149,30 @@ RF_REG_RTOL = 1e-4
 RF_REG_MOVED = 0.01
 PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores (NVIDIA data sheet)
 PEAK_TF32_FLOPS = 495e12  # H100 SXM, TF32 on the tensor cores, dense
+PEAK_NARROW_OPS = {"bfloat16": 989e12, "int8": 1979e12}  # dense bf16 FLOP/s, int8 OP/s
+KNN_FORMS = ("bfloat16", "int8")  # the top-k scan's narrow forms (config knn_precision)
+# a narrow form's kneighbors against the f32 answer of the same run, at these
+# blob data: recall@k at least this. bfloat16: 0.99. int8: 0.8, the JAX
+# package's own floor for its narrow forms (tests/test_pallas_select.py,
+# test_rerank_invariant_distances_exact): its per-row quantization moves q.x
+# by about 1% of d2 at d = 256, as much as the 200th to 250th neighbours'
+# distances differ among 8.4M blob items, so the pool of k + k/4 misses some
+# true neighbours (the int8 pools equal their plain version's bit for bit, and
+# the plain version the JAX package's on the CPU tests).
+KNN_RECALL_GATE = {"bfloat16": 0.99, "int8": 0.8}
+# a narrow form's kernel pool against its plain version's, tol_i = rtol *
+# (q2_i + max valid x2), each pool d2 within tol of plain's at its rank and ids
+# equal wherever plain's d2 is more than 2 tol from its neighbors':
+#   int8: both sides take the same exact int32 sums and the same f32 rescale
+#   and epilogue: a few ulps at most (equal bits expected; counted);
+#   bfloat16: both sum the same exact products in another order, the tensor
+#   cores' accumulation truncating: d * 2^-23 * sum |q x| each, twice that in
+#   d2, and the epilogue's rounding
+TOPK_INT8_RTOL = 2.0**-22
+
+
+def topk_narrow_rtol(precision: str, d: int) -> float:
+    return TOPK_INT8_RTOL if precision == "int8" else (d + 1) * 2.0**-22
 TF32X3 = ("xtx", "xtxy", "topk")  # kernels whose products are 3xTF32 on the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 REPLACES = {
@@ -143,6 +183,8 @@ REPLACES = {
     "xtxy": "spark_rapids_ml_tpu/ops/pallas_xtwx.py:130",
     "count": "spark_rapids_ml_tpu/ops/pallas_select.py:610",
     "topk": "spark_rapids_ml_tpu/ops/pallas_select.py:258",
+    "topk_bf16": "spark_rapids_ml_tpu/ops/pallas_select.py:258",
+    "topk_int8": "spark_rapids_ml_tpu/ops/pallas_select.py:258",
     "node_bin_hist": "spark_rapids_ml_tpu/ops/pallas_histogram.py:131",
     "segment_hist": "spark_rapids_ml_tpu/ops/pallas_histogram.py:49",
 }
@@ -154,6 +196,8 @@ SOURCE = {
     "xtxy": "spark_rapids_ml_torch/csrc/xtx.cu",
     "count": "spark_rapids_ml_torch/csrc/count.cu",
     "topk": "spark_rapids_ml_torch/csrc/topk.cu",
+    "topk_bf16": "spark_rapids_ml_torch/csrc/topk.cu",
+    "topk_int8": "spark_rapids_ml_torch/csrc/topk.cu",
     "node_bin_hist": "spark_rapids_ml_torch/csrc/hist.cu",
     "segment_hist": "spark_rapids_ml_torch/csrc/hist.cu",
 }
@@ -501,6 +545,205 @@ def check_topk(Q, X, valid, k: int, label: str, sample=None, dups=()):
     return {"max_abs_err": float(diff.max())}, dk, ik
 
 
+def check_topk_narrow(Q, X, valid, kc, precision: str, label: str, items=None):
+    """A narrow form's kernel pool against its plain version's on the same
+    inputs (finite queries), as TOPK_INT8_RTOL / topk_narrow_rtol say.
+    Returns (errs, kernel d2, kernel ids)."""
+    import torch
+
+    from spark_rapids_ml_torch.ops.topk import fused_topk, topk_plain
+
+    dk, ik = fused_topk(Q, X, valid, kc, precision=precision, items=items)
+    dp, ip = topk_plain(Q, X, valid, kc, precision=precision, items=items)
+    torch.cuda.synchronize()
+    n = X.shape[0]
+    kk = min(kc, n)
+    require(tuple(dk.shape) == tuple(ik.shape) == tuple(dp.shape) == (Q.shape[0], kk),
+            f"topk {precision} {label}: shape {tuple(dk.shape)}")
+    x2 = (X * X).sum(1)
+    x2max = float(x2[valid].max()) if bool(valid.any()) else 0.0
+    tol = topk_narrow_rtol(precision, X.shape[1]) * ((Q * Q).sum(1) + x2max)
+    diff = (dk.double() - dp.double()).abs()
+    require(bool((dk[:, 1:] >= dk[:, :-1]).all()), f"topk {precision} {label}: not ascending")
+    require(bool((diff <= tol[:, None]).all()), f"topk {precision} {label}: pool d2 beyond tol")
+    dpd = dp.double()
+    inf = torch.full_like(dpd[:, :1], float("inf"))
+    gap_lo = torch.diff(dpd, dim=1, prepend=-inf)
+    gap_hi = torch.diff(dpd, dim=1, append=inf if kk == n else -inf)  # the last rank: unsure
+    sure = (gap_lo > 2 * tol[:, None]) & (gap_hi > 2 * tol[:, None])
+    bad = int(((ik != ip) & sure).sum())
+    require(bad == 0, f"topk {precision} {label}: {bad} ids differ from plain where separated")
+    same = torch.equal(dk.view(torch.int32), dp.view(torch.int32)) and torch.equal(ik, ip)
+    log(f"  topk {precision} {label}: pool ids differing from plain {int((ik != ip).sum())} of "
+        f"{ik.numel()} (separated ranks {int(sure.sum())}, none differ there); max |kernel - "
+        f"plain| d2 {float(diff.max()):.4g} = {float((diff / tol[:, None]).max()):.3f} tol; "
+        f"bit-equal: {same}")
+    return {"max_abs_err": float(diff.max())}, dk, ik
+
+
+def check_rerank(Q, X, valid, k: int, precision: str, label: str, items=None):
+    """exact_knn_single in a narrow form on the card: its (d2, ids) are
+    parity_rerank_sq of its ids, bit for bit. Returns (d2, ids)."""
+    import torch
+
+    from spark_rapids_ml_torch.ops.knn import exact_knn_single, parity_rerank_sq
+
+    d2, ids = exact_knn_single(Q, X, valid, k, precision=precision, items=items)
+    d2b, idsb = parity_rerank_sq(Q, X, valid, ids, k)
+    require(torch.equal(d2.view(torch.int32), d2b.view(torch.int32)) and torch.equal(ids, idsb),
+            f"rerank {precision} {label}: the returned neighbors are not the re-rank of their ids")
+    return d2, ids
+
+
+def phase_small_narrow(torch) -> None:
+    """The top-k kernel's bfloat16 and int8 forms against their plain versions
+    at the f32 form's small ragged shapes and TOPK_HARD, and the re-rank
+    invariant through exact_knn_single."""
+    from spark_rapids_ml_torch.ops import topk as topk_mod
+    from spark_rapids_ml_torch.ops.topk import fused_topk
+
+    for precision in KNN_FORMS:
+        cases = 0
+        for nq, n in ((77, 5_003), (100, 50_003)):
+            for d in (13, 32, 200):
+                Q, X, valid, _ = topk_case(torch, nq, n, d, SEED + d + n, 0.2)
+                items = topk_mod.narrow_rows(X, precision)
+                for k in (1, 5, 33, 200, 256):
+                    check_topk_narrow(Q, X, valid, k, precision, f"nq={nq} n={n} d={d} k={k}",
+                                      items)
+                    cases += 1
+                for k in (1, 10, 200, 205):  # pools of 9, 18, 250 and 256
+                    check_rerank(Q, X, valid, k, precision, f"nq={nq} n={n} d={d} k={k}", items)
+        Q, X, valid, _ = topk_case(torch, 100, 50_003, 13, SEED + 5, 0.2)
+        one = pinned_splits(topk_mod, 1, lambda: fused_topk(Q, X, valid, 200, precision=precision))
+        for splits in (2, 7, 64):
+            got = pinned_splits(topk_mod, splits,
+                                lambda: fused_topk(Q, X, valid, 200, precision=precision))
+            require(torch.equal(got[0], one[0]) and torch.equal(got[1], one[1]),
+                    f"topk {precision}: {splits} splits differ from one")
+        for i, (kind, nq, n, d, k, tail) in enumerate(TOPK_HARD):
+            Q, X, valid = topk_hard_case(torch, kind, nq, n, d, SEED + 200 + i, tail)
+            label = f"{kind} nq={nq} n={n} d={d} k={k}" + (" masked tail" if tail else "")
+            _, dk, ik = check_topk_narrow(Q, X, valid, k, precision, label)
+            cases += 1
+            if kind == "duplicate":  # equal d2: the valid ids in order, then the sentinel tail
+                order = torch.cat([valid.nonzero()[:, 0], (~valid).nonzero()[:, 0]])
+                require(bool((ik == order[: min(k, n)].to(ik.dtype)[None, :]).all()),
+                        f"topk {precision} {label}: ties not lowest id first")
+        log(f"  topk {precision}: {cases} pools held to plain, 24 re-ranks bit-equal to "
+            f"parity_rerank_sq of their ids, 2 / 7 / 64 item ranges equal to one")
+
+
+def phase_small_nonfinite(torch) -> None:
+    """A kernel never turns NaN into a number: count with NaN query and item
+    rows equals the plain count (NaN rows count nothing); the top-k kernel's
+    f32 and narrow forms give the plain version's ids for NaN query rows, and
+    never return a NaN item (a NaN norm makes it invalid) while finite items
+    fill k; assign and Lloyd send a NaN row to center 0, as their plain
+    versions do."""
+    from spark_rapids_ml_torch.ops import lloyd as lloyd_mod
+    from spark_rapids_ml_torch.ops import select as select_mod
+    from spark_rapids_ml_torch.ops.count import count_below_plain, fused_count_below
+    from spark_rapids_ml_torch.ops.topk import fused_topk, topk_plain
+
+    nan = float("nan")
+    rng = np.random.default_rng(SEED + 300)
+    Xh, _ = blobs(5_003, 32, 5, SEED + 300, spread=3.0)
+    X = torch.from_numpy(Xh).cuda()
+    Q = X[torch.from_numpy(rng.choice(5_003, 1_777)).cuda()].clone()
+    qbad, xbad = [0, 63, 64, 1_000], [5, 700, 5_002]
+    Q[qbad, 3] = nan
+    X[xbad, 0] = nan
+    valid = torch.from_numpy(rng.random(5_003) > 0.2).cuda()
+    valid[xbad] = True
+    eps2 = float(torch.quantile(((Q[100:300, None, :] - X[None, 1000:3000, :]) ** 2).sum(-1)
+                                .flatten(), 0.05))
+    _, ck, cp, _ = check_count(Q, X, valid, eps2, f"NaN rows nq=1777 n=5003 d=32 eps2={eps2:.4g}")
+    require(bool((ck[qbad] == 0).all()) and bool((cp[qbad] == 0).all()),
+            "count: a NaN query counted an item")
+    require(torch.equal(fused_count_below(X, X, valid, eps2)[xbad].cpu(),
+                        torch.zeros(len(xbad), dtype=torch.int32)), "count: a NaN item counted")
+    require(torch.equal(count_below_plain(X, X, valid, eps2)[xbad].cpu(),
+                        torch.zeros(len(xbad), dtype=torch.int32)), "plain count: a NaN item counted")
+    X[xbad, 0] = 1.0  # finite items below: the top-k NaN-query cases
+    for precision in ("float32",) + KNN_FORMS:
+        for mask in (0.0, 0.2):
+            valid_t = torch.from_numpy(rng.random(5_003) >= mask).cuda()
+            for k in (5, 200):
+                dk, ik = fused_topk(Q, X, valid_t, k, precision=precision)
+                dp, ip = topk_plain(Q, X, valid_t, k, precision=precision)
+                require(torch.equal(ik[qbad], ip[qbad]),
+                        f"topk {precision} k={k} mask={mask}: NaN-query ids differ from plain")
+                require(torch.equal(dk[qbad].isnan(), dp[qbad].isnan())
+                        and torch.equal(dk[qbad].nan_to_num(), dp[qbad].nan_to_num()),
+                        f"topk {precision} k={k} mask={mask}: NaN-query d2 differ from plain")
+                clean = Q.clone()
+                clean[qbad] = 0.0
+                dc, ic = fused_topk(clean, X, valid_t, k, precision=precision)
+                ok = torch.ones(Q.shape[0], dtype=torch.bool, device="cuda")
+                ok[qbad] = False
+                require(torch.equal(dk[ok], dc[ok]) and torch.equal(ik[ok], ic[ok]),
+                        f"topk {precision}: NaN queries changed another query's answer")
+        X[xbad, 0] = nan
+        Qf = Q[100:1_000]  # finite queries
+        kn = fused_topk(Qf, X, valid, 200, precision=precision)
+        masked = valid.clone()
+        masked[xbad] = False
+        km = fused_topk(Qf, X, masked, 200, precision=precision)
+        require(torch.equal(kn[0], km[0]) and torch.equal(kn[1], km[1]),
+                f"topk {precision}: a NaN item is not taken as invalid")
+        require(not bool(torch.isin(kn[1], torch.tensor(xbad, device="cuda")).any()),
+                f"topk {precision}: a NaN item was returned")
+        X[xbad, 0] = 1.0
+    C = X[torch.from_numpy(rng.choice(5_003, 20, replace=False)).cuda()].clone()
+    Xa = X.clone()
+    Xa[[7, 4_001], 2] = nan
+    lk, lp = select_mod.assign(Xa, C), select_mod.assign_plain(Xa, C)
+    require(int(lk[7]) == int(lk[4_001]) == int(lp[7]) == int(lp[4_001]) == 0,
+            "assign: a NaN row is not sent to center 0")
+    fine = torch.ones(Xa.shape[0], dtype=torch.bool, device="cuda")
+    fine[[7, 4_001]] = False
+    two = torch.zeros(20, device="cuda")
+    two[0] = 2.0
+    for step in (lloyd_mod.lloyd_step, lloyd_mod.lloyd_step_plain):
+        c_all = step(Xa, C, Xa.shape[0])[1]
+        c_fine = step(Xa[fine].contiguous(), C, Xa.shape[0] - 2)[1]
+        require(torch.equal(c_all - c_fine, two), f"{step.__name__}: NaN rows not in center 0")
+    log(f"  non-finite: count with {len(qbad)} NaN queries and {len(xbad)} NaN items equal to "
+        f"plain (NaN rows count 0); top-k f32 / bf16 / int8 NaN-query ids equal to plain, NaN "
+        f"items never returned; assign and Lloyd put NaN rows in center 0")
+
+
+def phase_small_hist_determinism(torch) -> None:
+    """The histogram kernels on real-valued stats (uniform(0, 2) weights times
+    normal labels, as a regressor's w y): three launches give the same bits,
+    within HIST_RTOL of plain."""
+    from spark_rapids_ml_torch.ops import histogram as H
+
+    for n, d, s, width, nbins in [(100_003, 64, 3, 32, 32), (20_011, 7, 5, 300, 256),
+                                  (100_003, 64, 2, 1, 32), (10_007, 13, 1, 16, 256)]:
+        rng = np.random.default_rng(SEED + 400 + n + d)
+        to = lambda a: torch.from_numpy(a).cuda()
+        Xb = to(rng.integers(0, nbins, size=(n, d)).astype(np.int32))
+        node = to(rng.integers(0, width, size=(n,)).astype(np.int32))
+        v = to((rng.uniform(0, 2, (n, 1)) * rng.normal(size=(n, s))).astype(np.float32))
+        runs = [H.node_bin_histogram(Xb, node, v, width, nbins) for _ in range(3)]
+        require(all(torch_equal_bits(r, runs[0]) for r in runs[1:]),
+                f"hist n={n} d={d} s={s} width={width}: launches differ in their bits")
+        plain = H.node_bin_histogram_plain(Xb, node, v, width, nbins)
+        check_hist(runs[0], plain, H.node_bin_histogram_plain(Xb, node, v.abs(), width, nbins),
+                   False, f"real stats n={n} d={d} s={s} width={width} nbins={nbins}")
+        seg = node[:, None] * nbins + Xb
+        runs = [H.segment_histogram(seg, v, width * nbins) for _ in range(3)]
+        require(all(torch_equal_bits(r, runs[0]) for r in runs[1:]),
+                f"segment hist n={n} d={d} s={s}: launches differ in their bits")
+        check_hist(runs[0], H.segment_histogram_plain(seg, v, width * nbins),
+                   H.segment_histogram_plain(seg, v.abs(), width * nbins), False,
+                   f"segment real stats n={n} d={d} s={s} n_segments={width * nbins}")
+    log("  hist: real-valued stats, 3 launches of each kernel bit-equal at 4 shapes, within "
+        f"{HIST_RTOL} of plain")
+
+
 def phase_small(torch) -> None:
     log("phase 2a: kernels against plain at small ragged shapes")
     n = 10_007  # not a multiple of any block
@@ -549,7 +792,10 @@ def phase_small(torch) -> None:
             eps2 = float(torch.quantile(sample.flatten()[:1 << 20], q))
             check_count(Q, X, valid, eps2, f"nq={nq} n={n_items} d={d} eps2={eps2:.4g}")
     phase_small_topk(torch)
+    phase_small_narrow(torch)
+    phase_small_nonfinite(torch)
     phase_small_hist(torch)
+    phase_small_hist_determinism(torch)
     torch.cuda.synchronize()
 
 
@@ -1043,12 +1289,14 @@ def main() -> int:
         return 1
     import pandas as pd
 
+    from spark_rapids_ml_torch import config as torch_config
     from spark_rapids_ml_torch.clustering import DBSCAN, KMeans
     from spark_rapids_ml_torch.feature import PCA
     from spark_rapids_ml_torch.knn import NearestNeighbors
     from spark_rapids_ml_torch.ops import _cuda, histogram, xtwx
     from spark_rapids_ml_torch.ops import count as count_mod
     from spark_rapids_ml_torch.ops import dbscan as dbscan_mod
+    from spark_rapids_ml_torch.ops import knn as knn_ops
     from spark_rapids_ml_torch.ops import linear as linear_mod
     from spark_rapids_ml_torch.ops import lloyd as lloyd_mod
     from spark_rapids_ml_torch.ops import select as select_mod
@@ -1066,6 +1314,8 @@ def main() -> int:
         "xtxy": (xtwx.xtxy, "launches"),
         "count": (count_mod.fused_count_below, "launches"),
         "topk": (topk_mod.fused_topk, "launches"),
+        "topk_bf16": (topk_mod.fused_topk, "bf16_launches"),
+        "topk_int8": (topk_mod.fused_topk, "int8_launches"),
         "node_bin_hist": (histogram.node_bin_histogram, "launches"),
         "segment_hist": (histogram.segment_histogram, "launches"),
     }
@@ -1141,6 +1391,27 @@ def main() -> int:
         sample=sample)
     require(bool((ids_knn10[: NQ_KNN10 // 2, 0].cpu() == torch.from_numpy(self_rows)).all()),
             "topk: a row of X queried is not its own nearest item")
+    # the narrow forms at both traffics: pools against plain, the re-rank
+    # invariant, self-queries first; each form's item operand made once
+    narrow_items = {}
+    for precision in KNN_FORMS:
+        t0 = time.perf_counter()
+        narrow_items[precision] = topk_mod.narrow_rows(X, precision)
+        torch.cuda.synchronize()
+        log(f"  {precision} copy of the items: {time.perf_counter() - t0:.3f} s, "
+            f"{narrow_items[precision].rows.nbytes / 1e9:.3f} GB")
+        name = "topk_" + ("bf16" if precision == "bfloat16" else "int8")
+        for Q_t, k, n_self in ((Qk, K_KNN, NQ_KNN), (Qk10, K_KNN10, NQ_KNN10 // 2)):
+            kc = topk_mod.oversample_width(k, N_MAIN, precision)
+            label = f"nq={Q_t.shape[0]} n={N_MAIN} d={D_MAIN} pool {kc} (k={k})"
+            err, _, _ = check_topk_narrow(Q_t, X, valid_all, kc, precision, label,
+                                          narrow_items[precision])
+            if k == K_KNN:
+                errs[name] = err
+            _, ids_r = check_rerank(Q_t, X, valid_all, k, precision, label, narrow_items[precision])
+            want_self = torch.arange(NQ_KNN) if k == K_KNN else torch.from_numpy(self_rows)
+            require(bool((ids_r[:n_self, 0].cpu() == want_self).all()),
+                    f"topk {precision}: a row of X queried is not its own nearest item")
     torch.cuda.synchronize()
 
     log("phase 3: main paths through the estimators")
@@ -1195,6 +1466,19 @@ def main() -> int:
     _, _, knn_df10 = run_path("NearestNeighbors kneighbors k=10", lambda: nn.kneighbors(qdf10))
     joined10 = run_path("NearestNeighbors join k=10",
                         lambda: nn.exactNearestNeighborsJoin(qdf10, distCol="dist"))
+    narrow_out = {}  # (form, k) -> (knn_df, joined)
+    for precision in KNN_FORMS:
+        torch_config.set("knn_precision", precision)
+        try:
+            for k, q_frame in ((K_KNN, qdf), (K_KNN10, qdf10)):
+                nn.setK(k)
+                tag = f" {precision}" + ("" if k == K_KNN else " k=10")
+                out = run_path(f"NearestNeighbors kneighbors{tag}", lambda: nn.kneighbors(q_frame))
+                jn = run_path(f"NearestNeighbors join{tag}",
+                              lambda: nn.exactNearestNeighborsJoin(q_frame, distCol="dist"))
+                narrow_out[(precision, k)] = (out[2], jn)
+        finally:
+            torch_config.unset("knn_precision")
     log(f"  launches per path: {json.dumps(path_counts)}")
     n_iter = km.summary.numIter
     t_pca, t_pca_tr = stages["PCA fit"][0], stages["PCA transform"][0]
@@ -1223,6 +1507,13 @@ def main() -> int:
     for label in ("NearestNeighbors kneighbors", "NearestNeighbors join",
                   "NearestNeighbors kneighbors k=10", "NearestNeighbors join k=10"):
         require(pc[label]["topk"] == 1, f"{label} did not launch the top-k kernel once")
+    for precision in KNN_FORMS:
+        name = "topk_" + ("bf16" if precision == "bfloat16" else "int8")
+        for call in ("kneighbors", "join"):
+            for tag in (f" {precision}", f" {precision} k=10"):
+                label = f"NearestNeighbors {call}{tag}"
+                require(pc[label][name] == 1 and pc[label]["topk"] == 0,
+                        f"{label} did not launch the {precision} form once (and no other)")
 
     # PCA and KMeans outputs: shapes, finiteness, agreement with plain versions
     P = np.stack(proj["pca_features"].to_numpy())
@@ -1351,7 +1642,49 @@ def main() -> int:
               np.arange(NQ_KNN))
     check_knn(" k=10", knn_df10, joined10, query_ids, NQ_KNN10, K_KNN10, d2_knn10, ids_knn10,
               self_rows)
-    del nn, knn_df, joined, knn_df10, joined10
+
+    # the narrow forms through the estimator: recall@k against the f32 answer
+    # of this run, every returned distance within the f32 form's tolerance of
+    # f64 (held on a sample of queries), self-queries first, the join's rows
+    x2max_main = float((X * X).sum(1).max())
+    for precision in KNN_FORMS:
+        for k, f32_df, qh, qids, self_r in ((K_KNN, knn_df, Xh[:NQ_KNN], np.arange(NQ_KNN),
+                                             np.arange(NQ_KNN)),
+                                            (K_KNN10, knn_df10, Qh_knn10, query_ids, self_rows)):
+            tag = f" {precision}" + ("" if k == K_KNN else " k=10")
+            got_df, jn = narrow_out[(precision, k)]
+            ids = np.stack(got_df["indices"].to_numpy())
+            dist = np.stack(got_df["distances"].to_numpy())
+            ids32 = np.stack(f32_df["indices"].to_numpy())
+            nq = len(qids)
+            require(ids.shape == (nq, k) and np.array_equal(got_df["query_id"].to_numpy(), qids),
+                    f"kneighbors{tag}: shape or query ids")
+            recall = float(np.mean([len(np.intersect1d(ids[i], ids32[i])) / k for i in range(nq)]))
+            gate = KNN_RECALL_GATE[precision]
+            require(recall >= gate, f"kneighbors{tag}: recall@{k} {recall} < gate {gate}")
+            require(np.array_equal(ids[: len(self_r), 0], self_r),
+                    f"kneighbors{tag}: a row of X is not its own first neighbor")
+            rows = np.arange(0, nq, max(1, nq // KNN_F64_QUERIES))
+            Qs = torch.from_numpy(qh[rows]).cuda().double()
+            ids_t = torch.from_numpy(ids[rows]).cuda()
+            d64 = ((X[ids_t].double() - Qs[:, None, :]) ** 2).sum(-1)
+            tol = TOPK_RTOL * ((Qs * Qs).sum(1) + x2max_main)
+            d_got = torch.from_numpy(dist[rows]).cuda().double() ** 2
+            worst = float(((d_got - d64).abs() / tol[:, None]).max())
+            require(worst <= 1.0, f"kneighbors{tag}: a distance is {worst} tol off f64")
+            require(np.array_equal(jn["item_id"].to_numpy(), ids.reshape(-1))
+                    and np.array_equal(jn["dist"].to_numpy(), dist.reshape(-1)),
+                    f"join{tag}: rows differ from kneighbors'")
+            spans = stages[f"NearestNeighbors kneighbors{tag}"][1]
+            require(spans.attrs.get("select", {}).get("precision") == precision,
+                    f"kneighbors{tag}: the select span does not name the form")
+            log(f"  NearestNeighbors{tag} ({nq} queries, k={k}): kneighbors "
+                f"{stages[f'NearestNeighbors kneighbors{tag}'][0]:.3f} s (select "
+                f"{spans.get('select', 0.0):.4f} s, rerank {spans.get('rerank', 0.0):.4f} s, the "
+                f"items' copy {spans.get('narrow_items', 0.0):.4f} s), join "
+                f"{stages[f'NearestNeighbors join{tag}'][0]:.3f} s; recall@{k} against f32 "
+                f"{recall:.6f} (gate {gate}); distances at most {worst:.4f} tol off f64")
+    del nn, knn_df, joined, knn_df10, joined10, narrow_out
 
     log("phase 4: times at the main paths' shapes (CUDA events, median of 10; 3 for topk "
         "at 4,096 queries and in one item range)")
@@ -1370,6 +1703,19 @@ def main() -> int:
             v = torch.topk(d, kk, dim=1, largest=False).values
             del d
             (v + q2[s : s + KNN_LIB_BLOCK, None]).clamp_min_(0.0)
+
+    def count_library(Q, eps2):
+        """cuBLAS addmm (x2 - 2 Q_blk X^T, COUNT_LIB_BLOCK queries at a
+        time), + q2, then compare and sum per block."""
+        x2 = torch.sum(Xdb * Xdb, dim=1)
+        q2 = torch.sum(Q * Q, dim=1)
+        out = torch.empty(Q.shape[0], dtype=torch.int64, device=Q.device)
+        for s in range(0, Q.shape[0], COUNT_LIB_BLOCK):
+            d = torch.addmm(x2[None, :], Q[s : s + COUNT_LIB_BLOCK], Xdb.T, alpha=-2.0)
+            d.add_(q2[s : s + COUNT_LIB_BLOCK, None])
+            out[s : s + COUNT_LIB_BLOCK] = (d <= eps2).sum(1)
+            del d
+        return out
 
     def topk_bytes_flops(nq, kk):
         # X, its norms and the mask, Q and its norms read once; d2 and ids written
@@ -1405,8 +1751,9 @@ def main() -> int:
         "count": (
             lambda: count_mod.fused_count_below(Xdb, Xdb, valid_db, eps2_db),
             lambda: count_mod.count_below_plain(Xdb, Xdb, valid_db, eps2_db),
-            # no one PyTorch call at this size: the (n, n) distance matrix is 275 GB
-            None,
+            # query-blocked addmm, compare and sum: the (n, n) distance matrix
+            # of one call would be 275 GB
+            lambda: count_library(Xdb, eps2_db),
             4.0 * (2 * N_DB * D_DB + 2 * N_DB) + N_DB,
             2.0 * N_DB * N_DB * D_DB + 4.0 * N_DB * N_DB,
         ),
@@ -1421,8 +1768,8 @@ def main() -> int:
     }
     for name, (kern, plain, lib, nbytes, flops) in specs.items():
         ms = time_ms(torch, kern)
-        plain_ms = time_ms(torch, plain)
-        lib_ms = time_ms(torch, lib) if lib is not None else None
+        plain_ms = time_ms(torch, plain, 3, 1)
+        lib_ms = None if lib is None else time_ms(torch, lib, *((3, 1) if name == "count" else ()))
         b_ms, b_by = bound(nbytes, flops)
         tc = ""
         if name in TF32X3:
@@ -1436,8 +1783,9 @@ def main() -> int:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms,
         })
-    log("  count has no library call: one PyTorch call would build the (n, n) distance "
-        f"matrix, {4.0 * N_DB * N_DB / 1e9:.0f} GB at n = {N_DB}")
+    log(f"  count library figure: cuBLAS addmm of blocks of {COUNT_LIB_BLOCK} queries against "
+        f"all items, + q2, compare and sum (one call would build the (n, n) distance matrix, "
+        f"{4.0 * N_DB * N_DB / 1e9:.0f} GB at n = {N_DB})")
     log(f"  topk library figure: cuBLAS addmm of blocks of up to {KNN_LIB_BLOCK} queries against "
         f"all items ({4.0 * KNN_LIB_BLOCK * N_MAIN / 1e9:.1f} GB tile) and torch.topk per block")
     # the top-k kernel at the k = 10 traffic, and at both with the items in one
@@ -1467,6 +1815,64 @@ def main() -> int:
     log(f"  topk with the items' norms computed in the wrapper (as PRs 3-4 timed it): "
         f"{NQ_KNN} queries, k={K_KNN} {ms_norms:.4f} ms; {NQ_KNN10} queries, k={K_KNN10} "
         f"{ms10_norms:.4f} ms")
+    # the narrow forms: kernel, plain, the re-rank beside them, bf16 library
+    def topk_library_bf16(Q, kk):
+        """cuBLAS bf16 addmm (x2 - 2 Q_blk X^T in bf16, KNN_LIB_BLOCK queries
+        at a time) and torch.topk of each block, then + q2 on the kc kept."""
+        q2 = torch.sum(Q * Q, dim=1)
+        Qb = Q.to(torch.bfloat16)
+        for s in range(0, Q.shape[0], KNN_LIB_BLOCK):
+            d = torch.addmm(x2_bf16[None, :], Qb[s : s + KNN_LIB_BLOCK], X_bf16.T, alpha=-2.0)
+            v = torch.topk(d, kk, dim=1, largest=False).values
+            del d
+            (v.float() + q2[s : s + KNN_LIB_BLOCK, None]).clamp_min_(0.0)
+
+    def rerank_stage(Q, kc, k, precision):
+        _, idx = topk_mod.fused_topk(Q, X, valid_all, kc, x2=x2_main, precision=precision,
+                                     items=narrow_items[precision])
+        return lambda: (
+            knn_ops.parity_rerank_sq(Q, X, valid_all,
+                                     knn_ops.parity_rerank_sq(Q, X, valid_all, idx, k)[1], k)
+            if kc != k else knn_ops.parity_rerank_sq(Q, X, valid_all, idx, k))
+
+    X_bf16 = narrow_items["bfloat16"].rows
+    x2_bf16 = x2_main.to(torch.bfloat16)
+    for precision in KNN_FORMS:
+        name = "topk_" + ("bf16" if precision == "bfloat16" else "int8")
+        items = narrow_items[precision]
+        esize = items.rows.element_size()
+        dp = items.rows.shape[1]
+        for Q_t, k, reps in ((Qk, K_KNN, 10), (Qk10, K_KNN10, 3)):
+            nq_t = Q_t.shape[0]
+            kc = topk_mod.oversample_width(k, N_MAIN, precision)
+            kern = lambda: topk_mod.fused_topk(Q_t, X, valid_all, kc, x2=x2_main,
+                                               precision=precision, items=items)
+            ms = time_ms(torch, kern, reps, 1)
+            plain_ms = time_ms(torch, lambda: topk_mod.topk_plain(
+                Q_t, X, valid_all, kc, x2=x2_main, precision=precision, items=items),
+                *((3, 1) if k == K_KNN else (2, 0)))
+            lib_ms = time_ms(torch, lambda: topk_library_bf16(Q_t, kc), 3, 1)
+            rr_ms = time_ms(torch, rerank_stage(Q_t, kc, k, precision), reps, 1)
+            # items in the form's type with their norms (and int8 scales) and
+            # the mask, the queries likewise, the pool written; the products at
+            # the form's dense peak, the f32 epilogue (4 operations a pair)
+            nbytes = (esize * (N_MAIN + nq_t) * dp + 4.0 * (N_MAIN + nq_t)
+                      * (2 if precision == "int8" else 1) + N_MAIN + 8.0 * nq_t * kc)
+            t_ops = (2.0 * nq_t * N_MAIN * D_MAIN / PEAK_NARROW_OPS[precision]
+                     + 4.0 * nq_t * N_MAIN / PEAK_F32_FLOPS)
+            t_bytes = nbytes / PEAK_BYTES
+            b_ms, b_by = 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+            log(f"  {name} at {nq_t} queries, pool {kc} (k={k}): kernel {ms:.4f} ms  plain "
+                f"{plain_ms:.4f} ms  library (bf16 addmm + topk) {lib_ms:.4f} ms  bound "
+                f"{b_ms:.4f} ms ({b_by}); the exact re-rank to k {rr_ms:.4f} ms")
+            if k == K_KNN:
+                rows.append({
+                    "name": name, "route": "cuda", "source": SOURCE[name],
+                    "replaces": REPLACES[name], "launches": launches[name],
+                    "max_abs_err": errs[name]["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                })
+    del X_bf16, x2_bf16
     sms = _cuda.sm_count(X)
     for kk in (K_KNN10, K_KNN, topk_mod.K_MAX):
         log(f"  topk at k={kk}: {topk_mod._smem_bytes(kk)} bytes of dynamic shared memory a "
@@ -1507,7 +1913,7 @@ def main() -> int:
         f"span was {stages['KMeans fit'][1]['lloyd_loop']:.4f} s")
 
     # the forests run last, on rows of their own: free the earlier paths' data
-    del Xh, X, y, x2_main, specs, Xdb, Qk, Qk10
+    del Xh, X, y, x2_main, specs, Xdb, Qk, Qk10, narrow_items
     gc.collect()
     torch.cuda.empty_cache()
     rows += phase_forest(torch, run_path, stages, path_counts, launches)

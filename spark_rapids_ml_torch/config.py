@@ -9,7 +9,13 @@
 #   parity_precision  (str,  env SRML_TORCH_PARITY_PRECISION)  "highest": model-
 #                     attribute products run in full f32 (no TF32, no bf16).
 #   fast_math         (bool, env SRML_TORCH_FAST_MATH)         reduced-precision
-#                     ranking products; not implemented yet, a True request raises.
+#                     ranking products of KMeans; not implemented yet, a True
+#                     request raises.
+#   knn_precision     (str,  env SRML_TORCH_KNN_PRECISION)     the products of exact
+#                     kNN's top-k scan: "float32" (the default, exact), "bfloat16"
+#                     or "int8", which rank an oversampled candidate pool that an
+#                     exact f32 re-rank cuts back to k (ops/knn.py); the JAX
+#                     package's knn.pallas_precision. An unknown value raises.
 #
 
 from __future__ import annotations
@@ -21,12 +27,14 @@ _DEFAULTS: Dict[str, Any] = {
     "device": "cuda",
     "parity_precision": "highest",
     "fast_math": False,
+    "knn_precision": "float32",
 }
 
 _ENV_KEYS: Dict[str, str] = {
     "device": "SRML_TORCH_DEVICE",
     "parity_precision": "SRML_TORCH_PARITY_PRECISION",
     "fast_math": "SRML_TORCH_FAST_MATH",
+    "knn_precision": "SRML_TORCH_KNN_PRECISION",
 }
 
 _overrides: Dict[str, Any] = {}

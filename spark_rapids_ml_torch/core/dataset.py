@@ -119,6 +119,18 @@ def ensure_dtype(X: np.ndarray, float32: bool = True) -> np.ndarray:
     return X if X.dtype == dt else X.astype(dt)
 
 
+def require_finite_rows(X: Any, what: str) -> None:
+    """Raise ValueError naming the first row of the (m, d) tensor X (on any
+    device) with a NaN or infinite feature: one pass over X, before any kernel
+    sees it."""
+    import torch
+
+    finite = torch.isfinite(X).all(dim=1)
+    if not bool(finite.all()):
+        row = int((~finite).nonzero()[0, 0])
+        raise ValueError(f"{what} row {row} has a NaN or infinite feature; the port takes finite features")
+
+
 def ensure_id_col(dataset: Any, id_col_name: str) -> Any:
     """A pandas frame without the column `id_col_name` comes back as a copy
     with it, 0..n-1 int64 (reference params.py:110-129 `_ensureIdCol`); other

@@ -23,7 +23,9 @@
 //   * The criterion is the TPU kernel's: max(q2 - 2 q.x + x2, 0) <= eps2, with
 //     q2 and x2 the wrapper's row norms, and x2m_j = -1 for an invalid item (the
 //     TPU kernel's folding of the mask into the norm operand): an invalid item,
-//     or one past n, never counts.
+//     or one past n, never counts. The clamp keeps a NaN (a kernel never turns
+//     NaN into a number), so a query or item with a NaN feature counts
+//     nothing, as in the plain count and the JAX package.
 //   * The eight threads of a query add their counts by shuffles at the end.
 
 #include "nearest.cuh"
@@ -57,7 +59,8 @@ count_kernel(const float* __restrict__ Q, const float* __restrict__ q2, int64_t 
         const int j = k0 + g + 8 * q;
         if (j < n) {
           const float xn = x2m[j];
-          const float d2 = fmaxf(qn - 2.f * acc[q] + xn, 0.f);
+          float d2 = qn - 2.f * acc[q] + xn;
+          d2 = d2 < 0.f ? 0.f : d2;  // keeps a NaN, which counts nothing (fmaxf gives 0)
           cnt += (xn >= 0.f && d2 <= eps2) ? 1 : 0;
         }
       }

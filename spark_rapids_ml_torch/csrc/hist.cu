@@ -26,34 +26,56 @@
 //     fall in other banks. The wrapper picks the tile so it fits the budget
 //     (SMEM_BYTES in ops/histogram.py): the whole level at the main shape,
 //     node and bin tiles at wide levels or many bins.
-//   * Thread t takes feature jj = t % dt of rows t / dt, t / dt + 512 / dt, ...
-//     of the range: a warp reads neighbouring bin ids of neighbouring rows, so
-//     its reads of Xb are coalesced. A row whose node or bin lies outside the
-//     tile adds nothing; a zero stat is skipped (adding +0 changes no sum).
-//   * Adds go to shared memory by atomicAdd. Blocks of the same rows and
-//     neighbouring feature tiles are launched together, so that the 32-byte
-//     sectors of a row that one block fetches can serve the next from L2.
+//   * One input gives one histogram, bit for bit, every run: every add has a
+//     fixed place in a fixed order. Warp w owns features w, w + warps, ...:
+//     no other warp writes their cells. For each 32 rows, lane l takes row l
+//     of the feature; the lanes whose rows share a (node, bin) cell find each
+//     other (__match_any_sync), the lowest of them sums their stats in lane
+//     order, that is row order, and makes the one add to the cell. A warp
+//     takes two groups of 32 rows at a time, their matches and sums side by
+//     side (each waits on shared-memory latency), their adds one group after
+//     the other. A row whose node or bin lies outside the tile adds nothing.
+//   * Rows come through shared memory in stages of `stage_rows` (the
+//     wrapper's choice, ops/histogram.py::_stage_rows): the tile's bin ids
+//     (a row's features side by side, an odd row stride so a warp's 32 rows
+//     of one feature fall in 32 banks), the node ids and the stats, copied by
+//     cp.async into two buffers, so the next stage's copies are in flight
+//     while this one is summed. A deep level's tile holds few features (7 at
+//     32 nodes x 32 bins x 2 stats), so each warp has little work a stage:
+//     without the overlap every stage waited for device memory.
+//   * The block has one warp a feature of its tile, up to 16, so a deep
+//     level's blocks stay small and three share an SM. Blocks of the same
+//     rows and neighbouring feature tiles are launched together, so that the
+//     32-byte sectors of a row that one block fetches can serve the next from
+//     L2.
 //   * Blocks run in no order, so each writes its tile of its row range's
 //     partial histogram to scratch and a second kernel adds the partials in
-//     row-range order (as csrc/xtx.cu does): no float atomics to global memory.
-//     The order of the shared-memory adds inside a block is not fixed, so the
-//     last bits of non-integer sums (the regressor's w y, w y^2) may differ
-//     between runs; integer-valued stats below 2^24 (the classifier's counts
-//     with integer weights) are exact and come out the same every time.
+//     row-range order (as csrc/xtx.cu does): no float atomics anywhere.
 //   * With one row range the partial kernel writes the output itself.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define HIST_THREADS 512
+#include "tf32x3.cuh"  // cp.async helpers
+
+#define HIST_WARPS_MAX 16
 #define REDUCE_THREADS 256
 
-__global__ void __launch_bounds__(HIST_THREADS)
+// Dynamic shared memory of a block (ops/histogram.py::_smem_bytes): the
+// histogram tile, and two stages of stage_rows rows, each row its bin ids at
+// an odd stride, its node id and its s stats.
+static size_t hist_smem_bytes(int dt, int wt, int bt, int s, int stage_rows) {
+  return sizeof(float) * ((size_t)dt * ((size_t)wt * bt * s + 1) +
+                          2 * (size_t)stage_rows * ((dt | 1) + 1 + s));
+}
+
+__global__ void __launch_bounds__(32 * HIST_WARPS_MAX)
 hist_partial_kernel(const int* __restrict__ Xb, const int* __restrict__ node,
                     const float* __restrict__ val, int64_t n, int d, int s, int width,
                     int nbins, int dt, int wt, int bt, int d_tiles, int w_tiles,
-                    int b_tiles, int64_t rows_per_chunk, float* __restrict__ part) {
-  extern __shared__ float sh[];
+                    int b_tiles, int64_t rows_per_chunk, int stage_rows,
+                    float* __restrict__ part) {
+  extern __shared__ __align__(16) float sh[];
   const int tiles = d_tiles * w_tiles * b_tiles;
   const int64_t chunk = blockIdx.x / tiles;
   int tile = blockIdx.x % tiles;
@@ -65,28 +87,82 @@ hist_partial_kernel(const int* __restrict__ Xb, const int* __restrict__ node,
   const int dn = min(dt, d - j0), wn = min(wt, width - w0), bn = min(bt, nbins - b0);
   const int fs = wn * bn * s + 1;  // one feature's region, padded
   const int cells = dn * fs;
+  const int sp = dt | 1;  // a staged row's bin ids
+  const int stage_words = stage_rows * (sp + 1 + s);
+  int* const stages = reinterpret_cast<int*>(sh + dt * (wt * bt * s + 1));
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
 
   for (int i = threadIdx.x; i < cells; i += blockDim.x) sh[i] = 0.f;
-  __syncthreads();
 
   const int64_t r0 = chunk * rows_per_chunk;
   const int64_t r1 = min(r0 + rows_per_chunk, n);
-  const int lanes = blockDim.x / dn;  // rows per sweep
-  const int jj = threadIdx.x % dn;
-  const int lane = threadIdx.x / dn;
-  if (lane < lanes) {
-    for (int64_t r = r0 + lane; r < r1; r += lanes) {
-      const int w = (node != nullptr ? node[r] : 0) - w0;
-      if ((unsigned)w >= (unsigned)wn) continue;
-      const int b = Xb[r * d + j0 + jj] - b0;
-      if ((unsigned)b >= (unsigned)bn) continue;
-      const float* v = val + r * s;
-      float* h = sh + jj * fs + (w * bn + b) * s;
-      for (int k = 0; k < s; ++k) {
-        const float x = v[k];
-        if (x != 0.f) atomicAdd(h + k, x);
+  // stage b: bin ids [rr * sp + jj], then node ids [rr], then stats [rr * s + k]
+  auto fetch = [&](int64_t rs, int b) {
+    int* const bins = stages + b * stage_words;
+    int* const nodes = bins + stage_rows * sp;
+    float* const vals = reinterpret_cast<float*>(nodes + stage_rows);
+    const int rows = (int)min((int64_t)stage_rows, r1 - rs);
+    for (int e = threadIdx.x; e < rows * dn; e += blockDim.x) {
+      const int rr = e / dn, jj = e % dn;
+      cp_async4(bins + rr * sp + jj, Xb + (rs + rr) * d + j0 + jj, true);
+    }
+    if (node != nullptr) {
+      for (int e = threadIdx.x; e < rows; e += blockDim.x) cp_async4(nodes + e, node + rs + e, true);
+    }
+    for (int e = threadIdx.x; e < rows * s; e += blockDim.x) cp_async4(vals + e, val + rs * s + e, true);
+    cp_async_commit();
+  };
+
+  if (r0 < r1) fetch(r0, 0);
+  int b = 0;
+  for (int64_t rs = r0; rs < r1; rs += stage_rows, b ^= 1) {
+    if (rs + stage_rows < r1) {
+      fetch(rs + stage_rows, b ^ 1);  // the next stage, in flight while this one is summed
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // this stage landed for every thread (and the tile is zeroed)
+    const int* const bins = stages + b * stage_words;
+    const int* const nodes = bins + stage_rows * sp;
+    const float* const vals = reinterpret_cast<const float*>(nodes + stage_rows);
+    const int rows = (int)min((int64_t)stage_rows, r1 - rs);
+    // two groups of 32 rows at a time (a, then b): their matches and sums are
+    // independent, and their adds keep the order a group at a time would
+    for (int rg = 0; rg < rows; rg += 64) {
+      const int ra = rg + lane, rb = rg + 32 + lane;
+      const int wa = ra < rows ? (node != nullptr ? nodes[ra] : 0) - w0 : -1;
+      const int wb = rb < rows ? (node != nullptr ? nodes[rb] : 0) - w0 : -1;
+      const bool ina = (unsigned)wa < (unsigned)wn, inb = (unsigned)wb < (unsigned)wn;
+      const float* const va = vals + rg * s;  // the groups' stats
+      const float* const vb = va + 32 * s;
+      for (int jj = warp; jj < dn; jj += warps) {
+        const int bina = ina ? bins[ra * sp + jj] - b0 : -1;
+        const int binb = inb ? bins[rb * sp + jj] - b0 : -1;
+        const int ca = ina && (unsigned)bina < (unsigned)bn ? wa * bn + bina : -1;
+        const int cb = inb && (unsigned)binb < (unsigned)bn ? wb * bn + binb : -1;
+        const unsigned pa = __match_any_sync(0xffffffffu, ca);
+        const unsigned pb = __match_any_sync(0xffffffffu, cb);
+        const unsigned below = (1u << lane) - 1u;
+        const bool la = ca >= 0 && (pa & below) == 0u;  // the lowest lane of its cell
+        const bool lb = cb >= 0 && (pb & below) == 0u;
+        float* const h = sh + jj * fs;
+        for (int k = 0; k < s; ++k) {
+          float sa = 0.f, sb = 0.f;
+          if (la) {
+            for (unsigned m = pa; m != 0u; m &= m - 1u) sa += va[(__ffs(m) - 1) * s + k];
+          }
+          if (lb) {
+            for (unsigned m = pb; m != 0u; m &= m - 1u) sb += vb[(__ffs(m) - 1) * s + k];
+          }
+          if (la) h[ca * s + k] += sa;
+          __syncwarp();  // group a's add to a cell lands before group b's
+          if (lb) h[cb * s + k] += sb;
+        }
+        __syncwarp();
       }
     }
+    __syncthreads();  // every warp is done with this stage before it is refilled
   }
   __syncthreads();
 
@@ -115,19 +191,21 @@ hist_reduce_kernel(const float* __restrict__ part, int64_t size, int n_chunks,
 
 static int launch(const int* Xb, const int* node, const float* val, long long n, int d,
                   int s, int width, int nbins, int dt, int wt, int bt,
-                  long long rows_per_chunk, int n_chunks, int reduce_blocks, float* part,
-                  float* out, cudaStream_t stream) {
+                  long long rows_per_chunk, int n_chunks, int stage_rows, int reduce_blocks,
+                  float* part, float* out, cudaStream_t stream) {
   const int d_tiles = (d + dt - 1) / dt;
   const int w_tiles = (width + wt - 1) / wt;
   const int b_tiles = (nbins + bt - 1) / bt;
-  const size_t smem = (size_t)dt * ((size_t)wt * bt * s + 1) * sizeof(float);
+  if (stage_rows < 32 || stage_rows % 32 != 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = hist_smem_bytes(dt, wt, bt, s, stage_rows);
   cudaError_t err = cudaFuncSetAttribute(
       hist_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int64_t blocks = (int64_t)n_chunks * d_tiles * w_tiles * b_tiles;
-  hist_partial_kernel<<<(unsigned)blocks, HIST_THREADS, smem, stream>>>(
+  const int threads = 32 * (dt < HIST_WARPS_MAX ? dt : HIST_WARPS_MAX);
+  hist_partial_kernel<<<(unsigned)blocks, threads, smem, stream>>>(
       Xb, node, val, (int64_t)n, d, s, width, nbins, dt, wt, bt, d_tiles, w_tiles,
-      b_tiles, (int64_t)rows_per_chunk, n_chunks > 1 ? part : out);
+      b_tiles, (int64_t)rows_per_chunk, stage_rows, n_chunks > 1 ? part : out);
   if (n_chunks > 1) {
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
@@ -139,22 +217,24 @@ static int launch(const int* Xb, const int* node, const float* val, long long n,
 }
 
 // Both launch on `stream`; allocate nothing, do not synchronise. `part` holds
-// n_chunks partial histograms (unused when n_chunks is 1). Return
+// n_chunks partial histograms (unused when n_chunks is 1); stage_rows is a
+// positive multiple of 32. Return
 // cudaGetLastError() (0 on success).
 extern "C" int srml_node_bin_hist(const void* Xb, const void* node, const void* val,
                                   long long n, int d, int s, int width, int nbins, int dt,
                                   int wt, int bt, long long rows_per_chunk, int n_chunks,
-                                  int reduce_blocks, void* part, void* out, void* stream) {
+                                  int stage_rows, int reduce_blocks, void* part, void* out,
+                                  void* stream) {
   return launch((const int*)Xb, (const int*)node, (const float*)val, n, d, s, width, nbins,
-                dt, wt, bt, rows_per_chunk, n_chunks, reduce_blocks, (float*)part,
+                dt, wt, bt, rows_per_chunk, n_chunks, stage_rows, reduce_blocks, (float*)part,
                 (float*)out, (cudaStream_t)stream);
 }
 
 extern "C" int srml_segment_hist(const void* seg, const void* val, long long n, int d, int s,
                                  int n_segments, int dt, int bt, long long rows_per_chunk,
-                                 int n_chunks, int reduce_blocks, void* part, void* out,
-                                 void* stream) {
+                                 int n_chunks, int stage_rows, int reduce_blocks, void* part,
+                                 void* out, void* stream) {
   return launch((const int*)seg, nullptr, (const float*)val, n, d, s, 1, n_segments, dt, 1,
-                bt, rows_per_chunk, n_chunks, reduce_blocks, (float*)part, (float*)out,
-                (cudaStream_t)stream);
+                bt, rows_per_chunk, n_chunks, stage_rows, reduce_blocks, (float*)part,
+                (float*)out, (cudaStream_t)stream);
 }

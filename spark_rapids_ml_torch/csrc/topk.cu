@@ -7,7 +7,18 @@
 //
 // Replaces: spark_rapids_ml_tpu/ops/pallas_select.py::_topk_scan_kernel (the
 // running top-k of the fused distance+select family, reached through
-// _fused_topk_scan, fused_topk_pinned and fused_topk), in its exact f32 mode.
+// _fused_topk_scan, fused_topk_pinned and fused_topk) in its three compiled
+// forms, chosen at launch (`mode`), with q.x_j taken as _cross_term takes it:
+//   * float32: exact f32, in 3xTF32 on the tensor cores (below);
+//   * bfloat16: bf16 operands (the wrapper's round-to-nearest-even copies),
+//     products exact in f32, summed by mma.sync m16n8k16 in one pass;
+//   * int8: int8 operands (the wrapper's per-row symmetric quantization,
+//     round(v / max(s, 1e-30)) with s = max |row| / 127), summed exactly in
+//     int32 by mma.sync m16n8k32, then (float(sum) * s_q) * s_x in the
+//     epilogue, the order the TPU kernel rescales in.
+// The narrow forms return the candidate pool of an approximate ranking; the
+// caller re-ranks it in exact f32 (ops/knn.py::parity_rerank_sq). Their
+// operand rows are padded with zeros to a whole 16 bytes by the wrapper.
 //
 // What bounds it on the H100: the cross terms take 2 nq n d operations and the
 // criterion and the compare about 4 more per pair. At the repo benchmark's
@@ -15,7 +26,10 @@
 // 4.3e14: 6.5 ms at the 67 TFLOP/s f32 peak of the CUDA cores, 2.6 ms in
 // 3xTF32 on the tensor cores (three TF32 products per f32 product at
 // 495 TFLOP/s), against 8.6 GB of items read once (2.6 ms at 3.35 TB/s). At
-// 4,096 queries it is bound by operations, 107 ms in 3xTF32.
+// 4,096 queries it is bound by operations, 107 ms in 3xTF32. The narrow forms
+// do the same products at the dense bf16 (989 TFLOP/s) and int8 (1,979 TOPS)
+// rates on 2 or 1 bytes an item column, so their bound at 4,096 queries is
+// about 18 and 9 ms of products beside the f32 epilogue's 4 nq n operations.
 //
 // Design (tf32x3.cuh has the products and the copies):
 //   * A block owns a 64-query tile and one contiguous range of items, walked
@@ -49,6 +63,14 @@
 //     latency of its fragment loads, splits and mma chains more than on the
 //     tensor cores, so 16 warps beat 8: on an H100, builds with 8 warps, or
 //     with one mma per fragment in place of three, showed it.
+//   * The narrow forms keep all of this: their ring stages hold the same 128
+//     bytes a row (64 bf16 or 128 int8 columns), and their fragments of a
+//     k-step (16 bf16 or 32 int8 columns) sit at the same 32-bit words of a
+//     row as a TF32 k-step's 8 columns, so one fragment load serves all three
+//     forms; only the mma and the epilogue's rescale differ.
+//   * Non-finite values: a kernel never turns NaN into a number. A NaN d2
+//     (a NaN query) keys above INVALID_D2, as the plain version's selection
+//     orders it; a NaN item has a NaN norm and is invalid, in every form.
 //   * Pools start as all-ones keys (empty): every real key is below them, so
 //     when k exceeds the valid items the tail holds the earliest invalid ids
 //     at exactly INVALID_D2, as in the TPU kernel.
@@ -58,6 +80,8 @@
 //     and in key order.
 
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tf32x3.cuh"
 
@@ -76,6 +100,9 @@
 #define NF (IT / WARPS_N / 8)   // and n8 fragments (its IT / WARPS_N items)
 #define MERGE_THREADS 256
 #define KEY_EMPTY 0xffffffffffffffffull
+#define MODE_F32 0   // the forms of the scan (ops/topk.py MODES)
+#define MODE_BF16 1
+#define MODE_INT8 2
 
 typedef unsigned long long u64;
 
@@ -96,10 +123,16 @@ __device__ __forceinline__ float d2_raw(float qn, float acc, float xe) {
   return fmaf(-2.f, acc, qn) + xe;
 }
 
+// The clamps keep a NaN (fmaxf / fminf would turn it into 0 or the sentinel):
+// its key, like its plain-version order key, ranks above every number's.
 __device__ __forceinline__ u64 make_key(float qn, float acc, float xe, int id) {
-  const float v = xe == INFINITY ? TOPK_INVALID_D2
-                                 : fminf(fmaxf(d2_raw(qn, acc, xe), 0.f), TOPK_INVALID_D2);
-  // & 0x7fffffff: a -0.0 from fmaxf keys as +0.0
+  float v = TOPK_INVALID_D2;
+  if (xe != INFINITY) {
+    v = d2_raw(qn, acc, xe);
+    v = v < 0.f ? 0.f : v;
+    v = v > TOPK_INVALID_D2 ? TOPK_INVALID_D2 : v;
+  }
+  // & 0x7fffffff: a -0.0 (or a NaN with its sign set) keys as its positive twin
   return ((u64)(__float_as_uint(v) & 0x7fffffffu) << 32) | (uint32_t)id;
 }
 
@@ -148,6 +181,31 @@ __device__ __forceinline__ void warp_sort(u64& a, u64& b, int lane, bool only32)
   }
 }
 
+// c += a.b for one m16n8k16 bf16 fragment, f32 accumulators. Per warp, g =
+// lane / 4, t = lane % 4, each register two bf16 (lower column low):
+//   A (16 x 16, row major)  a0 = A[g][2t..]  a1 = A[g+8][2t..]  a2 = A[g][2t+8..]  a3 = A[g+8][2t+8..]
+//   B (16 x 8, column major) b0 = B[2t..][g]  b1 = B[2t+8..][g]
+//   C as mma_tf32's (tf32x3.cuh).
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a.b for one m16n8k32 int8 fragment, exact int32 accumulators; each
+// register four int8 (lowest column lowest byte):
+//   A (16 x 32, row major)  a0 = A[g][4t..]  a1 = A[g+8][4t..]  a2 = A[g][4t+16..]  a3 = A[g+8][4t+16..]
+//   B (32 x 8, column major) b0 = B[4t..][g]  b1 = B[4t+16..][g]
+__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
 // Merge into their pools the buffers that hold at least min_cnt keys, and
 // update those queries' k-th key. The queries to merge are dealt out to the
 // warps in turn (the i-th to warp i % 16), so a merge phase costs about one
@@ -184,19 +242,27 @@ __device__ void merge_buffers(u64* pool, u64* buf, u64* thr, float* thr_d2, int*
     if (lane == 0) {
       const u64 kth = P[k - 1];
       thr[r] = kth;
-      thr_d2[r] = kth == KEY_EMPTY ? INFINITY : key_d2(kth);
+      // a NaN k-th d2 (a NaN query's pool) filters nothing: keys decide
+      thr_d2[r] = kth == KEY_EMPTY || isnan(key_d2(kth)) ? INFINITY : key_d2(kth);
       cnt[r] = 0;
     }
     __syncwarp();
   }
 }
 
+// MODE: the form of the products. Q (nq, d) and X (n, d) hold f32, bf16 or
+// int8 by the form (d counts their columns, zero padding included); qs and xs
+// are the int8 form's row scales (unread otherwise).
+template <int MODE>
 __global__ void __launch_bounds__(THREADS, 1)
-topk_scan_kernel(const float* __restrict__ Q, const float* __restrict__ q2, int64_t nq,
-                 int d, const float* __restrict__ X, const float* __restrict__ x2m,
+topk_scan_kernel(const void* __restrict__ Q, const float* __restrict__ q2, int64_t nq,
+                 int d, const void* __restrict__ X, const float* __restrict__ x2m,
+                 const float* __restrict__ qs, const float* __restrict__ xs,
                  int n, int k, int bcap, int split_items, int n_qtiles, bool vec16,
                  u64* __restrict__ part, float* __restrict__ out_d2,
                  int* __restrict__ out_id) {
+  constexpr int ESIZE = MODE == MODE_F32 ? 4 : MODE == MODE_BF16 ? 2 : 1;
+  constexpr int DKE = DK * 4 / ESIZE;  // columns a ring stage holds (its 128 bytes a row)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   u64* pool = reinterpret_cast<u64*>(smem_raw);
   u64* buf = pool + QT * k;
@@ -213,7 +279,10 @@ topk_scan_kernel(const float* __restrict__ Q, const float* __restrict__ q2, int6
   const int split = blockIdx.x / n_qtiles;
   const int lo = split * split_items;
   const int hi = min(lo + split_items, n);
-  const int n_dc = (d + DK - 1) / DK;
+  const int n_dc = (d + DKE - 1) / DKE;
+  const int64_t row_bytes = (int64_t)d * ESIZE;
+  const char* const Qb = static_cast<const char*>(Q);
+  const char* const Xb = static_cast<const char*>(X);
   const int n_units = (hi - lo + IT - 1) / IT * n_dc;  // (item tile, column chunk)
 
   for (int e = tid; e < QT * k; e += THREADS) pool[e] = KEY_EMPTY;
@@ -223,45 +292,50 @@ topk_scan_kernel(const float* __restrict__ Q, const float* __restrict__ q2, int6
     cnt[tid] = 0;
   }
   float qn[MF][2];  // q2 of this thread's rows: (wm*MF + mf)*16 + g + 8h
+  float qsc[MF][2];  // and their int8 scales
 #pragma unroll
   for (int mf = 0; mf < MF; ++mf)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int64_t row = q0 + (wm * MF + mf) * 16 + g + 8 * h;
       qn[mf][h] = row < nq ? q2[row] : 0.f;
+      qsc[mf][h] = MODE == MODE_INT8 && row < nq ? qs[row] : 0.f;
     }
 
+  // a stage: 128 bytes of each of the tile's rows, as 16-byte copies (the
+  // narrow forms' rows are whole 16 bytes), or as 4-byte ones for f32 rows
+  // that are not
   auto load = [&](int u) {
     float* Qs = ring + (u % STAGES) * (QT + IT) * LDK;
-    float* Xs = Qs + QT * LDK;
     const int j0 = lo + u / n_dc * IT;
-    const int c0 = u % n_dc * DK;
+    const int64_t b0 = (int64_t)(u % n_dc) * (DK * 4);  // the stage's first byte of a row
+    auto copies = [&](auto width) {  // width: bytes a copy, 16 or 4
+      constexpr int W = decltype(width)::value, PER = DK * 4 / W;
+      for (int e = tid; e < (QT + IT) * PER; e += THREADS) {
+        const int rr = e / PER, off = W * (e % PER);
+        float* dst = Qs + rr * LDK + off / 4;
+        const bool in = b0 + off < row_bytes;
+        const char* src;
+        bool p;
+        if (rr < QT) {
+          p = q0 + rr < nq && in;
+          src = p ? Qb + (q0 + rr) * row_bytes + b0 + off : Qb;
+        } else {
+          const int j = j0 + rr - QT;
+          p = j < hi && in;
+          src = p ? Xb + (int64_t)j * row_bytes + b0 + off : Xb;
+        }
+        if constexpr (W == 16) {
+          cp_async16(dst, src, p);
+        } else {
+          cp_async4(dst, src, p);
+        }
+      }
+    };
     if (vec16) {
-      for (int e = tid; e < (QT + IT) * (DK / 4); e += THREADS) {
-        const int rr = e / (DK / 4), col = c0 + 4 * (e % (DK / 4));
-        float* dst = Qs + rr * LDK + 4 * (e % (DK / 4));
-        if (rr < QT) {
-          const bool p = q0 + rr < nq && col < d;
-          cp_async16(dst, p ? Q + (q0 + rr) * d + col : Q, p);
-        } else {
-          const int j = j0 + rr - QT;
-          const bool p = j < hi && col < d;
-          cp_async16(dst, p ? X + (int64_t)j * d + col : X, p);
-        }
-      }
+      copies(std::integral_constant<int, 16>{});
     } else {
-      for (int e = tid; e < (QT + IT) * DK; e += THREADS) {
-        const int rr = e / DK, col = c0 + e % DK;
-        float* dst = Qs + rr * LDK + e % DK;
-        if (rr < QT) {
-          const bool p = q0 + rr < nq && col < d;
-          cp_async4(dst, p ? Q + (q0 + rr) * d + col : Q, p);
-        } else {
-          const int j = j0 + rr - QT;
-          const bool p = j < hi && col < d;
-          cp_async4(dst, p ? X + (int64_t)j * d + col : X, p);
-        }
-      }
+      copies(std::integral_constant<int, 4>{});
     }
   };
 
@@ -275,23 +349,31 @@ topk_scan_kernel(const float* __restrict__ Q, const float* __restrict__ q2, int6
   int u = 0;
   for (int j0 = lo; j0 < hi; j0 += IT) {
     float xn[NF][2];  // x2 of this thread's items j0 + (wn*NF + nf)*8 + 2t + e, or +inf
+    float xsc[NF][2];  // and their int8 scales
 #pragma unroll
     for (int nf = 0; nf < NF; ++nf)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int j = j0 + (wn * NF + nf) * 8 + 2 * t + e;
         const float x2 = j < hi ? x2m[j] : -1.f;
+        // a NaN norm (a NaN item) fails the test too: invalid
         xn[nf][e] = x2 >= 0.f ? x2 : INFINITY;
+        xsc[nf][e] = MODE == MODE_INT8 && j < hi ? xs[j] : 0.f;
       }
     // acc: the tile's cross terms in f32; p: one column chunk's, on the
-    // tensor cores (tf32x3.cuh: their accumulation truncates)
+    // tensor cores (tf32x3.cuh: their accumulation truncates); iacc: the int8
+    // form's exact int32 sums
     float acc[MF][NF][4], p[MF][NF][4];
+    int iacc[MF][NF][4];
 #pragma unroll
     for (int mf = 0; mf < MF; ++mf)
 #pragma unroll
       for (int nf = 0; nf < NF; ++nf)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mf][nf][e] = p[mf][nf][e] = 0.f;
+        for (int e = 0; e < 4; ++e) {
+          acc[mf][nf][e] = p[mf][nf][e] = 0.f;
+          iacc[mf][nf][e] = 0;
+        }
 
     for (int dc = 0; dc < n_dc; ++dc, ++u) {
       cp_async_wait<STAGES - 2>();
@@ -300,31 +382,72 @@ topk_scan_kernel(const float* __restrict__ Q, const float* __restrict__ q2, int6
       cp_async_commit();
       const float* Qs = ring + (u % STAGES) * (QT + IT) * LDK;
       const float* Xs = Qs + QT * LDK;
-      auto kstep = [&](int kk) {  // columns kk .. kk + 7 of the chunk
-        FragB3 fb[NF];
+      // words kk .. kk + 7 of the stage's rows: 8 f32, 16 bf16 or 32 int8
+      // columns, one k-step of the form's mma; its fragments are words
+      // {kk + t, kk + t + 4} of rows g and g + 8 (A) and of row g (B) in
+      // every form
+      auto kstep = [&](int kk) {
+        if constexpr (MODE == MODE_F32) {
+          FragB3 fb[NF];
 #pragma unroll
-        for (int nf = 0; nf < NF; ++nf) {
-          const float* b = Xs + ((wn * NF + nf) * 8 + g) * LDK + kk + t;
-          split_b(b[0], b[4], fb[nf]);
-        }
+          for (int nf = 0; nf < NF; ++nf) {
+            const float* b = Xs + ((wn * NF + nf) * 8 + g) * LDK + kk + t;
+            split_b(b[0], b[4], fb[nf]);
+          }
 #pragma unroll
-        for (int mf = 0; mf < MF; ++mf) {
-          const float* a = Qs + ((wm * MF + mf) * 16 + g) * LDK + kk + t;
-          const float v[4] = {a[0], a[8 * LDK], a[4], a[8 * LDK + 4]};
-          FragA3 fa;
-          split_a(v, fa);
+          for (int mf = 0; mf < MF; ++mf) {
+            const float* a = Qs + ((wm * MF + mf) * 16 + g) * LDK + kk + t;
+            const float v[4] = {a[0], a[8 * LDK], a[4], a[8 * LDK + 4]};
+            FragA3 fa;
+            split_a(v, fa);
 #pragma unroll
-          for (int nf = 0; nf < NF; ++nf) mma_3xtf32(p[mf][nf], fa, fb[nf]);
+            for (int nf = 0; nf < NF; ++nf) mma_3xtf32(p[mf][nf], fa, fb[nf]);
+          }
+        } else {
+          uint32_t fb[NF][2];
+#pragma unroll
+          for (int nf = 0; nf < NF; ++nf) {
+            const float* b = Xs + ((wn * NF + nf) * 8 + g) * LDK + kk + t;
+            fb[nf][0] = __float_as_uint(b[0]);
+            fb[nf][1] = __float_as_uint(b[4]);
+          }
+#pragma unroll
+          for (int mf = 0; mf < MF; ++mf) {
+            const float* a = Qs + ((wm * MF + mf) * 16 + g) * LDK + kk + t;
+            const uint32_t fa[4] = {__float_as_uint(a[0]), __float_as_uint(a[8 * LDK]),
+                                    __float_as_uint(a[4]), __float_as_uint(a[8 * LDK + 4])};
+#pragma unroll
+            for (int nf = 0; nf < NF; ++nf) {
+              if constexpr (MODE == MODE_BF16) {
+                mma_bf16(p[mf][nf], fa, fb[nf]);
+              } else {
+                mma_s8(iacc[mf][nf], fa, fb[nf]);
+              }
+            }
+          }
         }
       };
-      const int cols = d - dc * DK;  // columns left; zeros past them
-      if (cols >= DK) {
+      // words of the rows left; zeros past them
+      const int words = (int)((row_bytes - (int64_t)dc * (DK * 4)) / 4);
+      if (words >= DK) {
 #pragma unroll
         for (int kk = 0; kk < DK; kk += 8) kstep(kk);
       } else {
-        for (int kk = 0; kk < cols; kk += 8) kstep(kk);
+        for (int kk = 0; kk < words; kk += 8) kstep(kk);
       }
-      add_stage<MF * NF * 4>(&acc[0][0][0], &p[0][0][0]);
+      if constexpr (MODE != MODE_INT8) add_stage<MF * NF * 4>(&acc[0][0][0], &p[0][0][0]);
+    }
+    if constexpr (MODE == MODE_INT8) {
+      // the exact sums, rescaled as the TPU kernel does: (float(sum) * s_q) * s_x
+#pragma unroll
+      for (int mf = 0; mf < MF; ++mf)
+#pragma unroll
+        for (int nf = 0; nf < NF; ++nf)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float c = __int2float_rn(iacc[mf][nf][e]);
+            acc[mf][nf][e] = __fmul_rn(__fmul_rn(c, qsc[mf][e >> 1]), xsc[nf][e & 1]);
+          }
     }
 
     // Epilogue: candidates below their query's k-th key go to its buffer;
@@ -457,20 +580,45 @@ topk_merge_kernel(const u64* __restrict__ part, int64_t nq, int k, int n_splits,
   }
 }
 
-// Launches on `stream`; allocates nothing, does not synchronise. With
+// Launches on `stream`; allocates nothing, does not synchronise. `mode` is
+// MODE_F32, MODE_BF16 or MODE_INT8; Q and X hold that form's operands (f32,
+// bf16 or int8, d columns each, a whole 16 bytes a row in the narrow forms),
+// and qs / xs the int8 form's row scales (ignored otherwise). With
 // n_splits == 1 the scan writes the result to (out_d2, out_id) and part /
 // scratch are not read; otherwise the scan writes (n_splits, nq, k) keys to
 // part, and the merge, with scratch of nq * (ceil(n_splits / 2) +
 // ceil(n_splits / 4)) * k keys, writes the result. Returns cudaGetLastError()
 // (0 on success).
+template <int MODE>
+static cudaError_t launch_scan(unsigned blocks, size_t smem, cudaStream_t stream,
+                               const void* Q, const float* q2, int64_t nq, int d,
+                               const void* X, const float* x2m, const float* qs,
+                               const float* xs, int n, int k, int bcap, int split_items,
+                               int n_qtiles, bool vec16, u64* part, float* out_d2,
+                               int* out_id) {
+  cudaError_t err = cudaFuncSetAttribute(
+      topk_scan_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  topk_scan_kernel<MODE><<<blocks, THREADS, smem, stream>>>(
+      Q, q2, nq, d, X, x2m, qs, xs, n, k, bcap, split_items, n_qtiles, vec16, part, out_d2,
+      out_id);
+  return cudaGetLastError();
+}
+
 extern "C" int srml_topk(const void* Q, const void* q2, long long nq, int d,
                          const void* X, const void* x2m, int n, int k, int n_splits,
                          int split_items, void* part, void* scratch, void* out_d2,
-                         void* out_id, void* stream) {
+                         void* out_id, int mode, const void* qs, const void* xs,
+                         void* stream) {
   if (nq <= 0) return (int)cudaGetLastError();
-  if (k < 1 || k > TOPK_K_MAX || n_splits < 1 || d < 1 || split_items < 1) {
+  if (k < 1 || k > TOPK_K_MAX || n_splits < 1 || d < 1 || split_items < 1 || mode < MODE_F32 ||
+      mode > MODE_INT8) {
     return (int)cudaErrorInvalidValue;
   }
+  const int esize = mode == MODE_F32 ? 4 : mode == MODE_BF16 ? 2 : 1;
+  const bool vec16 = (int64_t)d * esize % 16 == 0 && (uintptr_t)Q % 16 == 0 &&
+                     (uintptr_t)X % 16 == 0;
+  if (mode != MODE_F32 && !vec16) return (int)cudaErrorInvalidValue;  // rows of whole 16 bytes
   const long long n_qtiles = (nq + QT - 1) / QT;
   if (n_qtiles * n_splits >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   int dev = 0, max_smem = 0;
@@ -481,16 +629,24 @@ extern "C" int srml_topk(const void* Q, const void* q2, long long nq, int d,
   if (err != cudaSuccess) return (int)err;
   const int bcap = scan_smem_bytes(k, BUF_MAX) <= (size_t)max_smem ? BUF_MAX : 32;
   const size_t smem = scan_smem_bytes(k, bcap);
-  err = cudaFuncSetAttribute(topk_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const bool vec16 = d % 4 == 0 && (uintptr_t)Q % 16 == 0 && (uintptr_t)X % 16 == 0;
   const bool merge = n_splits > 1;
-  topk_scan_kernel<<<(unsigned)(n_qtiles * n_splits), THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)Q, (const float*)q2, (int64_t)nq, d, (const float*)X,
-      (const float*)x2m, n, k, bcap, split_items, (int)n_qtiles, vec16,
-      merge ? (u64*)part : nullptr, (float*)out_d2, (int*)out_id);
-  err = cudaGetLastError();
+  const unsigned blocks = (unsigned)(n_qtiles * n_splits);
+  auto* const pp = merge ? (u64*)part : nullptr;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (mode == MODE_F32) {
+    err = launch_scan<MODE_F32>(blocks, smem, st, Q, (const float*)q2, nq, d, X,
+                                (const float*)x2m, nullptr, nullptr, n, k, bcap, split_items,
+                                (int)n_qtiles, vec16, pp, (float*)out_d2, (int*)out_id);
+  } else if (mode == MODE_BF16) {
+    err = launch_scan<MODE_BF16>(blocks, smem, st, Q, (const float*)q2, nq, d, X,
+                                 (const float*)x2m, nullptr, nullptr, n, k, bcap, split_items,
+                                 (int)n_qtiles, vec16, pp, (float*)out_d2, (int*)out_id);
+  } else {
+    err = launch_scan<MODE_INT8>(blocks, smem, st, Q, (const float*)q2, nq, d, X,
+                                 (const float*)x2m, (const float*)qs, (const float*)xs, n, k,
+                                 bcap, split_items, (int)n_qtiles, vec16, pp, (float*)out_d2,
+                                 (int*)out_id);
+  }
   if (err != cudaSuccess || !merge) return (int)err;
   topk_merge_kernel<<<(unsigned)nq, MERGE_THREADS, 0, (cudaStream_t)stream>>>(
       (const u64*)part, (int64_t)nq, k, n_splits, (u64*)scratch, (float*)out_d2,

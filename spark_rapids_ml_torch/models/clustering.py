@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..core.backend_params import HasFeaturesCols, _TorchClass
+from ..core.dataset import require_finite_rows
 from ..core.estimator import FitInputs, _TorchEstimator, _TorchModel
 from ..core.params import (
     HasFeaturesCol,
@@ -172,6 +173,8 @@ class KMeans(_KMeansClass, _TorchEstimator, _KMeansParams):
             k = int(p["n_clusters"])
             if k > inputs.desc.m:
                 raise ValueError(f"k={k} exceeds the number of rows {inputs.desc.m}.")
+            # a NaN row would make k-means|| draw from NaN probabilities
+            require_finite_rows(inputs.features, "KMeans input")
             metric = str(p["metric"])
             res = kmeans_fit(
                 inputs.features,

@@ -7,7 +7,16 @@
 #     no other compute at fit);
 #   * NearestNeighborsModel.kneighbors() runs the exact search on the model's
 #     device through ops/knn.py::exact_knn_single (the top-k kernel on the
-#     card) and returns Euclidean distances and user item ids;
+#     card) and returns Euclidean distances and user item ids. The config key
+#     knn_precision picks the scan's form once per call: float32 (exact), or
+#     bfloat16 / int8, which rank an oversampled pool that an exact f32
+#     re-rank cuts back to k (exact distances, approximate id set); their
+#     bf16 or int8 copy of the items is made at the first search in that form
+#     and kept with the staged items (8,388,608 x 256 items: 4.3 GB bf16,
+#     2.1 GB int8 beside the 8.6 GB of f32 items the re-rank reads);
+#   * a query row with a NaN or infinite feature raises ValueError before any
+#     kernel runs: its distances would all be NaN, and the JAX package fails
+#     on it too;
 #   * exactNearestNeighborsJoin() flattens that into (query id, item id,
 #     distance) rows (reference knn.py:435-482); a slot naming no real item
 #     (id -1) or with a non-finite distance is dropped.
@@ -20,7 +29,8 @@
 # Not ported: ApproximateNearestNeighbors (IVF-Flat, IVF-PQ, CAGRA), the ring
 # and multi-process routes, the streamed scan, the incremental tier
 # (add_items / delete_items / compact_items; a carried `item_valid` mask is
-# honored), serving, persistence; k above the kernel's K_MAX raises.
+# honored), serving, persistence; k above the kernel's K_MAX raises (above
+# 205 in a narrow form, whose pool of k + max(8, k // 4) must fit K_MAX).
 #
 
 from __future__ import annotations
@@ -32,10 +42,12 @@ import pandas as pd
 import torch
 
 from ..core.backend_params import HasFeaturesCols, HasIDCol, _TorchClass
-from ..core.dataset import ensure_dtype, extract_feature_data
+from ..core.dataset import ensure_dtype, extract_feature_data, require_finite_rows
 from ..core.estimator import _TorchEstimator, _TorchModel, stage
 from ..core.params import HasInputCol, Param, ParamMap, TypeConverters
 from ..ops.knn import center_norms_sq, exact_knn_single
+from ..ops.selection import resolve_fused_precision
+from ..ops.topk import narrow_rows
 from ..utils import span
 
 
@@ -169,6 +181,8 @@ class NearestNeighborsModel(_NearestNeighborsClass, _TorchModel, _NNParams):
         self.initialize_torch_params()
         # (device, items, norms, valid or None) on the device of the last search
         self._staged: Optional[Tuple[torch.device, torch.Tensor, torch.Tensor, Any]] = None
+        # the narrow forms' item operands for the staged items, by form
+        self._narrow: Dict[str, Any] = {}
 
     def _transform_arrays(self, X: torch.Tensor) -> Dict[str, np.ndarray]:
         raise NotImplementedError("Use kneighbors() / exactNearestNeighborsJoin().")
@@ -187,7 +201,21 @@ class NearestNeighborsModel(_NearestNeighborsClass, _TorchModel, _NNParams):
                 valid = a.get("item_valid")
                 valid = None if valid is None else stage(np.asarray(valid, bool), device)
             self._staged = (device, X, x2, valid)
+            self._narrow = {}
         return self._staged[1:]
+
+    def _narrow_items(self, precision: str):
+        """The staged items' operand of a narrow form, made once a form."""
+        if precision == "float32":
+            return None
+        if precision not in self._narrow:
+            X = self._staged[1]
+            nbytes = X.shape[0] * (-(-X.shape[1] // 8) * 16 if precision == "bfloat16"
+                                   else -(-X.shape[1] // 16) * 16 + 4)
+            _check_fits(X.device, nbytes)
+            with span("narrow_items", precision=precision):
+                self._narrow[precision] = narrow_rows(X, precision)
+        return self._narrow[precision]
 
     def _search(self, query_df: Any):
         """(query_df with its id column, query ids, item ids (nq, k), Euclidean
@@ -203,13 +231,17 @@ class NearestNeighborsModel(_NearestNeighborsClass, _TorchModel, _NNParams):
             )
             query_ids = fd.row_id if fd.row_id is not None else np.arange(fd.n_rows, dtype=np.int64)
             Qh = ensure_dtype(fd.features)
+        precision = resolve_fused_precision()
         X, x2, valid = self._items_on(device)
         with span("stage"):
             Q = stage(Qh, device)
             if valid is None:
                 valid = torch.ones((X.shape[0],), dtype=torch.bool, device=device)
-        with span("select"):
-            d2, idx = exact_knn_single(Q, X, valid, self.getK(), x2=x2)
+            require_finite_rows(Q, "kNN query")
+        items = self._narrow_items(precision)
+        d2, idx = exact_knn_single(Q, X, valid, self.getK(), x2=x2, precision=precision,
+                                   items=items)
+        with span("select"):  # the read back to the host, charged to the search
             d2, idx = d2.cpu().numpy(), idx.cpu().numpy()
         # a deleted item of a carried model names id -1, as in the JAX package
         ids = np.asarray(self._model_attributes["item_ids"])[idx]

@@ -11,8 +11,10 @@
 # `node_bin_histogram_plain` / `segment_histogram_plain` for tensors on the
 # CPU. The plain versions are the JAX package's own non-Pallas route: per
 # feature, one index_add_ at node * nbins + bin (a segment_sum), over row
-# chunks of at most 2^28 (row, feature, stat) elements. The kernels' design and
-# bound on the H100 are in the source's header; the TPU's tile constants
+# chunks of at most 2^28 (row, feature, stat) elements. The kernels add in a
+# fixed order, so one input gives one histogram, bit for bit, on every run
+# (and one forest, whatever its stats). Their design and bound on the H100
+# are in the source's header; the TPU's tile constants
 # (BLOCK_ROWS, MAX_SEG_TILE, the node tile of 256, the VMEM budgets) have no
 # counterpart here.
 #
@@ -25,9 +27,14 @@ import torch
 
 from . import _cuda
 
-SMEM_BYTES = 64 * 1024  # a block's histogram tile: three blocks of 512 threads per SM
+SMEM_BYTES = 64 * 1024  # a block's histogram tile
+BLOCK_BYTES = 72 * 1024  # the tile and its two row stages: three blocks per SM
+SM_BYTES = 228 * 1024  # H100: shared memory of an SM (1 KB of it reserved a block)
 MAX_SMEM_BYTES = 227 * 1024  # the most a block may use on the H100
-HIST_THREADS = 512  # csrc/hist.cu
+HIST_THREADS = 512  # csrc/hist.cu: at most 16 warps, one a feature of the tile
+MAX_TILE_FEATURES = 128  # features of a tile, so a staged row stays small
+CUT_TILE_FEATURES = 16  # a level cut into tiles: one warp a feature
+MAX_STAGE_ROWS = 1024
 PART_BYTES = 256 << 20  # scratch for the row ranges' partial histograms
 MIN_CHUNK_ROWS = 1024
 PLAIN_CHUNK_ELEMS = 1 << 28
@@ -83,24 +90,46 @@ def _tiles(d: int, width: int, nbins: int, s: int) -> Tuple[int, int, int]:
     """(features, nodes, bins) of a block's histogram tile: as many bins as
     fit (all of them unless nbins * s is very large), then nodes, then
     features, within SMEM_BYTES with each feature's region padded by one
-    float. Feature tiles of 8 or more are cut to a multiple of 8 (a 32-byte
-    sector of a row's bin ids)."""
+    float, and at most MAX_TILE_FEATURES features. A level that has to be cut
+    into feature tiles anyway is cut into tiles of at most CUT_TILE_FEATURES,
+    one warp a feature: the histogram tile then leaves room for deep row
+    stages, where a 56-feature tile at 4 nodes left room for 32 rows. Feature
+    tiles of 8 or more are cut to a multiple of 8 (a 32-byte sector of a
+    row's bin ids)."""
     cap = SMEM_BYTES // 4
     bt = max(1, min(nbins, (cap - 1) // s))
     wt = max(1, min(width, (cap - 1) // (bt * s)))
-    dt = max(1, min(d, HIST_THREADS, cap // (wt * bt * s + 1)))
+    dt = max(1, min(d, MAX_TILE_FEATURES, cap // (wt * bt * s + 1)))
+    if dt < d:
+        dt = min(dt, CUT_TILE_FEATURES)
     if 8 <= dt < d:
         dt -= dt % 8
     return dt, wt, bt
 
 
-def _chunks(n: int, tiles: int, out_elems: int, sms: int) -> Tuple[int, int]:
-    """(rows per range, ranges): about four blocks per SM over tiles x
+def _stage_rows(dt: int, wt: int, bt: int, s: int) -> int:
+    """Rows a block stages at a time (two stages in flight): as many as keep
+    the block within BLOCK_BYTES beside its histogram tile, a multiple of 32,
+    from 32 to MAX_STAGE_ROWS. A staged row is its dt bin ids at an odd
+    stride, its node id and its s stats."""
+    room = BLOCK_BYTES - 4 * dt * (wt * bt * s + 1)
+    rows = room // (8 * ((dt | 1) + 1 + s)) // 32 * 32
+    return max(32, min(MAX_STAGE_ROWS, rows))
+
+
+def _smem_bytes(dt: int, wt: int, bt: int, s: int, stage_rows: int) -> int:
+    """Dynamic shared memory of a block (csrc/hist.cu hist_smem_bytes): the
+    histogram tile and two stages of stage_rows rows."""
+    return 4 * (dt * (wt * bt * s + 1) + 2 * stage_rows * ((dt | 1) + 1 + s))
+
+
+def _chunks(n: int, tiles: int, out_elems: int, sms: int, per_sm: int = 4) -> Tuple[int, int]:
+    """(rows per range, ranges): about per_sm blocks per SM over tiles x
     ranges, at least MIN_CHUNK_ROWS rows a range, and partials within
     PART_BYTES."""
     most = max(1, -(-n // MIN_CHUNK_ROWS))
     fit = max(1, PART_BYTES // max(4 * out_elems, 1))
-    n_chunks = max(1, min(most, fit, -(-4 * sms // tiles)))
+    n_chunks = max(1, min(most, fit, -(-per_sm * sms // tiles)))
     rows = -(-max(n, 1) // n_chunks)
     return rows, -(-max(n, 1) // rows)
 
@@ -111,8 +140,12 @@ def _launch(entry: str, Xb, node_id, values, width: int, nbins: int) -> torch.Te
     dt, wt, bt = _tiles(d, width, nbins, s)
     tiles = -(-d // dt) * -(-width // wt) * -(-nbins // bt)
     out_elems = width * d * nbins * s
-    rows, n_chunks = _chunks(n, tiles, out_elems, _cuda.sm_count(Xb))
-    if n_chunks * tiles >= 2**31 or 4 * dt * (wt * bt * s + 1) > MAX_SMEM_BYTES:
+    stage_rows = _stage_rows(dt, wt, bt, s)
+    smem = _smem_bytes(dt, wt, bt, s, stage_rows)
+    # two waves of the blocks resident on an SM (by shared memory and threads)
+    resident = max(1, min(SM_BYTES // (smem + 1024), 2048 // min(HIST_THREADS, 32 * dt)))
+    rows, n_chunks = _chunks(n, tiles, out_elems, _cuda.sm_count(Xb), 2 * resident)
+    if n_chunks * tiles >= 2**31 or smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"the histogram kernel cannot take {width} nodes x {nbins} bins x {s} stats"
         )
@@ -126,11 +159,11 @@ def _launch(entry: str, Xb, node_id, values, width: int, nbins: int) -> torch.Te
     fn = _cuda.entry(entry)
     if node_id is None:
         rc = fn(Xb.data_ptr(), values.data_ptr(), n, d, s, nbins, dt, bt, rows, n_chunks,
-                reduce_blocks, part.data_ptr(), out.data_ptr(), stream)
+                stage_rows, reduce_blocks, part.data_ptr(), out.data_ptr(), stream)
     else:
         rc = fn(Xb.data_ptr(), node_id.data_ptr(), values.data_ptr(), n, d, s, width, nbins,
-                dt, wt, bt, rows, n_chunks, reduce_blocks, part.data_ptr(), out.data_ptr(),
-                stream)
+                dt, wt, bt, rows, n_chunks, stage_rows, reduce_blocks, part.data_ptr(),
+                out.data_ptr(), stream)
     _cuda.check(rc, f"{entry} kernel")
     return out
 

@@ -19,16 +19,21 @@
 # index), so torch.topk of the key returns exactly the lowest-index-first
 # smallest k, with no tie left to resolve.
 #
-# The approximate strategies (approx, bf16/int8 fused precision) are not
-# ported; ops/knn.py raises NotImplementedError for them.
+# `resolve_fused_precision` resolves the fused top-k scan's products
+# (float32, bfloat16 or int8; the config key knn_precision). The approximate
+# selection strategy (approx_max_k) is not ported.
 #
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+# The fused top-k scan's forms (the JAX package's FUSED_PRECISIONS): exact f32,
+# and the two that rank an approximate pool for an exact re-rank.
+FUSED_PRECISIONS = ("float32", "bfloat16", "int8")
 
 # Large-finite invalid sentinel: no real squared distance on f32 inputs reaches
 # it before the clamp, and a sum of two sentinels stays finite.
@@ -83,3 +88,19 @@ def top_k_max(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]
     subsets pick through it."""
     d2, idx = select_topk(-scores, k)
     return -d2, idx
+
+
+def resolve_fused_precision(precision: Optional[str] = None) -> str:
+    """The fused top-k scan's products: the caller's `precision`, else the
+    config key knn_precision (set() > env > default "float32"). The port has no
+    tuning table. A non-float32 form obliges its caller to re-rank the pool in
+    exact f32 (ops/knn.py::parity_rerank_sq). Raises on an unknown value."""
+    from .. import config as _config
+
+    if precision is None:
+        precision = str(_config.get("knn_precision"))
+    if precision not in FUSED_PRECISIONS:
+        raise ValueError(
+            f"knn_precision must be one of {FUSED_PRECISIONS}, got {precision!r}"
+        )
+    return precision

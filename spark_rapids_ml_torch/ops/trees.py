@@ -132,6 +132,39 @@ def _feature_scores(
     return torch.rand((width, d), generator=generator, device=device)
 
 
+def _split_gains(
+    cum: torch.Tensor,
+    T: torch.Tensor,
+    impurity: str,
+    k_features: int,
+    min_instances: int,
+    generator: torch.Generator,
+) -> torch.Tensor:
+    """(width, d, nbins - 1) gain of every split of a level, from the
+    histogram's cumulative sums over bins `cum` (width, d, nbins, s) and the
+    nodes' stats T (width, s): -inf where a child would hold fewer than
+    min_instances or the feature is outside the node's subset."""
+    width, d = cum.shape[:2]
+    L = cum[:, :, :-1, :]  # split at bin 0..b-2
+    R = T[:, None, None, :] - L
+
+    wT = _stat_weight(T, impurity)  # (w,)
+    wL = _stat_weight(L, impurity)  # (w, d, b-1)
+    wR = _stat_weight(R, impurity)
+    gain = (
+        _impurity_times_w(T, impurity)[:, None, None]
+        - _impurity_times_w(L, impurity)
+        - _impurity_times_w(R, impurity)
+    ) / torch.clamp(wT, min=1e-12)[:, None, None]
+
+    valid = (wL >= min_instances) & (wR >= min_instances)
+    if k_features < d:
+        scores = _feature_scores(generator, width, d, cum.device)
+        kth = top_k_max(scores, k_features)[0][:, -1]
+        valid = valid & (scores >= kth[:, None])[:, :, None]
+    return torch.where(valid, gain, -math.inf)
+
+
 def _level_step(
     state: List[torch.Tensor],
     Xb: torch.Tensor,
@@ -148,31 +181,14 @@ def _level_step(
     """One tree level (width = 2**t): histogram, split selection, heap writes,
     row routing and the children's stats. The heap arrays are written in place."""
     feat_arr, thr_arr, leaf_arr, val_arr, gain_arr, wgt_arr, node_id, T = state
-    d = Xb.shape[1]
     s = values.shape[1]
     width = 2**t
     with span("histogram"):
         hist = node_bin_histogram(Xb, node_id, values, width, nbins)  # (w, d, b, s)
     with span("split"):
         cum = torch.cumsum(hist, dim=2)
-        L = cum[:, :, :-1, :]  # split at bin 0..b-2
-        R = T[:, None, None, :] - L
-
+        gain = _split_gains(cum, T, impurity, k_features, min_instances, generator)
         wT = _stat_weight(T, impurity)  # (w,)
-        wL = _stat_weight(L, impurity)  # (w, d, b-1)
-        wR = _stat_weight(R, impurity)
-        gain = (
-            _impurity_times_w(T, impurity)[:, None, None]
-            - _impurity_times_w(L, impurity)
-            - _impurity_times_w(R, impurity)
-        ) / torch.clamp(wT, min=1e-12)[:, None, None]
-
-        valid = (wL >= min_instances) & (wR >= min_instances)
-        if k_features < d:
-            scores = _feature_scores(generator, width, d, Xb.device)
-            kth = top_k_max(scores, k_features)[0][:, -1]
-            valid = valid & (scores >= kth[:, None])[:, :, None]
-        gain = torch.where(valid, gain, -math.inf)
 
         flat = gain.reshape(width, -1)
         best = torch.argmax(flat, dim=1)  # the first maximum, as jnp.argmax

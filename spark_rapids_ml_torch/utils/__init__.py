@@ -28,8 +28,17 @@ def get_logger(cls: Any, level: Union[int, str] = logging.INFO) -> logging.Logge
     return logger
 
 
+class SpanTimes(dict):
+    """{stage: seconds} of record_spans(), and in `attrs` the attributes each
+    stage's last span was opened with ({stage: {name: value}})."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.attrs: Dict[str, Dict[str, Any]] = {}
+
+
 # Stage timings: None while nothing records, else the dict record_spans() fills.
-_spans: Optional[Dict[str, float]] = None
+_spans: Optional[SpanTimes] = None
 # seconds of the spans closed inside each open span, innermost last
 _open: List[float] = []
 
@@ -40,9 +49,10 @@ def _sync() -> None:
 
 
 @contextmanager
-def span(name: str) -> Iterator[None]:
+def span(name: str, **attrs: Any) -> Iterator[None]:
     """Wall seconds of one stage of a fit or transform, added under `name` to the
-    dict that record_spans() is filling. The card is synchronized at both ends,
+    dict that record_spans() is filling; `attrs` (such as the form a kNN search
+    ran in) are kept in its `attrs`. The card is synchronized at both ends,
     so the device work a stage queued is charged to that stage. A span opened
     inside another is charged to itself only (the outer one records its time
     less the inner one's), so the stages of one call stay disjoint. While
@@ -50,6 +60,8 @@ def span(name: str) -> Iterator[None]:
     if _spans is None:
         yield
         return
+    if attrs:
+        _spans.attrs[name] = dict(attrs)
     _sync()
     t0 = time.perf_counter()
     _open.append(0.0)
@@ -65,12 +77,13 @@ def span(name: str) -> Iterator[None]:
 
 
 @contextmanager
-def record_spans() -> Iterator[Dict[str, float]]:
+def record_spans() -> Iterator[SpanTimes]:
     """Collect the spans of the calls made inside the block:
     `with record_spans() as t: model = PCA(k=3).fit(X)` leaves {stage: seconds}
-    in t; the stages of one call are disjoint."""
+    in t (and the spans' attributes in t.attrs); the stages of one call are
+    disjoint."""
     global _spans
-    prev, _spans = _spans, {}
+    prev, _spans = _spans, SpanTimes()
     try:
         yield _spans
     finally:

@@ -156,3 +156,22 @@ def test_fit_does_no_compute_and_carries_the_params():
 def test_unsupported_params_raise_at_fit(params, exc):
     with pytest.raises(exc):
         DBSCAN(device="cpu", **params).fit(_blobs(9))
+
+
+def test_a_nan_row_is_noise_in_both_packages():
+    """A row with a NaN feature counts no neighbor (a NaN distance is never
+    within eps, and the count kernel's clamp keeps the NaN), so it is no core
+    point and joins no cluster: -1, as in the JAX package. 60 x 3, two blobs."""
+    rng = np.random.default_rng(0)
+    X = np.concatenate([rng.normal(-3, 0.3, (30, 3)), rng.normal(3, 0.3, (30, 3))])
+    X = X.astype(np.float32)
+    X[17, 1] = np.nan
+    df = pd.DataFrame({"features": list(X)})
+    want = JaxDBSCAN(eps=1.0, min_samples=5).fit(df).transform(df)["prediction"].to_numpy()
+    got = DBSCAN(eps=1.0, min_samples=5, device="cpu").fit(df).transform(df)["prediction"]
+    got = got.to_numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got[17] == -1 and len(set(got) - {-1}) == 2
+    t = torch.from_numpy(X)
+    counts = count.fused_count_below(t, t, torch.ones(60, dtype=torch.bool), 1.0)
+    assert counts[17] == 0 and int(counts.min(0).values) == 0 and int(counts[16]) >= 5

@@ -129,3 +129,39 @@ def test_row_ranges_cover_every_row_once(n, tiles, out_elems):
     rows, n_chunks = histogram._chunks(n, tiles, out_elems, 132)
     assert n_chunks >= 1 and rows * n_chunks >= n and rows * (n_chunks - 1) < n
     assert n_chunks == 1 or 4 * out_elems * n_chunks <= histogram.PART_BYTES
+
+
+@pytest.mark.parametrize(
+    "d,width,nbins,s",
+    [(64, 1, 32, 2), (64, 32, 32, 3), (500, 1, 32, 2), (1000, 1, 2, 1), (9, 300, 32, 1),
+     (5, 1, 100_000, 3), (64, 1024, 256, 2)],
+)
+def test_a_block_with_its_staged_rows_fits_the_card(d, width, nbins, s):
+    """The kernel stages rows (bin ids, node id, stats) in two buffers beside
+    the histogram tile (one warp a feature, in a fixed add order): a tile
+    holds at most MAX_TILE_FEATURES features, a stage a multiple of 32 rows,
+    and the block fits the card, within BLOCK_BYTES (three blocks a SM) where
+    its tile leaves room for 32 rows."""
+    dt, wt, bt = histogram._tiles(d, width, nbins, s)
+    assert dt <= histogram.MAX_TILE_FEATURES
+    assert dt == d or dt <= histogram.CUT_TILE_FEATURES  # a cut level: one warp a feature
+    rows = histogram._stage_rows(dt, wt, bt, s)
+    assert rows % 32 == 0 and 32 <= rows <= histogram.MAX_STAGE_ROWS
+    smem = histogram._smem_bytes(dt, wt, bt, s, rows)
+    assert smem == 4 * dt * (wt * bt * s + 1) + 8 * rows * ((dt | 1) + 1 + s)
+    assert smem <= histogram.MAX_SMEM_BYTES
+    if rows > 32:
+        assert smem <= histogram.BLOCK_BYTES
+
+
+@pytest.mark.parametrize("n,d,s,width,nbins", NODE_BIN_CASES)
+def test_real_valued_stats_give_one_histogram_every_run(n, d, s, width, nbins):
+    """The plain version on real-valued stats: the same bits on every call
+    (the kernel's fixed add order holds its own to this on the card, in
+    chip_smoke.py's phase 2a)."""
+    rng = np.random.default_rng(4)
+    Xb = torch.from_numpy(rng.integers(0, nbins, size=(n, d)).astype(np.int32))
+    node = torch.from_numpy(rng.integers(0, width, size=(n,)).astype(np.int32))
+    vals = torch.from_numpy(rng.uniform(0, 2, size=(n, s)).astype(np.float32))
+    runs = [histogram.node_bin_histogram(Xb, node, vals, width, nbins) for _ in range(3)]
+    assert all(torch.equal(r.view(torch.int32), runs[0].view(torch.int32)) for r in runs)

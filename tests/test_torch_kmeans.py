@@ -139,3 +139,27 @@ def test_record_spans_times_each_stage_of_fit_and_transform():
     with utils.record_spans() as random_t:
         KMeans(k=4, initMode="random", device="cpu").fit(X)
     assert "init.random" in random_t and "init.oversample" not in random_t
+
+
+@pytest.mark.parametrize("bad", [np.nan, np.inf])
+def test_a_non_finite_feature_raises_at_fit(bad):
+    """k-means|| would draw from NaN probabilities; the fit names the row."""
+    X = _blobs(n=200, seed=5)
+    X[42, 3] = bad
+    with pytest.raises(ValueError, match="row 42 has a NaN or infinite"):
+        KMeans(k=3, seed=1, device="cpu").fit(X)
+
+
+def test_a_nan_row_goes_to_center_0_in_assign_and_lloyd():
+    """The assign and Lloyd kernels' rule (csrc/nearest.cuh), kept by their
+    plain versions: a NaN row's distances are all NaN, and it lands in center 0."""
+    from spark_rapids_ml_torch.ops import select
+
+    X = torch.from_numpy(_blobs(n=300, seed=6))
+    X[5, 0] = float("nan")
+    C = X[[10, 20, 30]].clone()
+    labels = select.assign(X, C)
+    assert int(labels[5]) == 0
+    _, counts, _ = lloyd.lloyd_step(X, C, 300)
+    _, counts_without, _ = lloyd.lloyd_step(X[torch.arange(300) != 5], C, 299)
+    assert float(counts[0]) == float(counts_without[0]) + 1.0

@@ -17,11 +17,15 @@ import pandas as pd
 import pytest
 import torch
 
+import spark_rapids_ml_tpu.config as jax_config
 import spark_rapids_ml_tpu.knn as jax_knn
+from spark_rapids_ml_tpu.ops import knn as jax_ops_knn
+from spark_rapids_ml_torch import config
 from spark_rapids_ml_torch.core.estimator import stage
 from spark_rapids_ml_torch.knn import NearestNeighbors, NearestNeighborsModel
 from spark_rapids_ml_torch.models import from_attributes
-from spark_rapids_ml_torch.ops import topk
+from spark_rapids_ml_torch.ops import knn as ops_knn
+from spark_rapids_ml_torch.ops import selection, topk
 from spark_rapids_ml_torch.utils import record_spans
 
 
@@ -227,3 +231,188 @@ def test_record_spans_times_the_stages_of_fit_and_kneighbors():
         model.get_model_attributes()["item_norms_sq"], (items * items).sum(1, dtype=np.float32)
     )
     assert isinstance(model._staged[1], torch.Tensor)
+
+
+# ---------------------------------------------------------------- the narrow forms
+# knn_precision = "bfloat16" or "int8": the top-k scan ranks an oversampled
+# pool in that form and an exact f32 re-rank cuts it to k, as the JAX package
+# does under knn.selection = pallas_fused and the same knn.pallas_precision
+# (its Pallas kernel in interpret mode here). Tolerance: both packages' returned
+# d2 are the difference form's f32 sums of the same candidates, taken in
+# another order, within RERANK_RTOL = d * 2^-23 of each other (d = 32 here);
+# their ids are equal at every rank whose f64 distance lies more than
+# 2e-5 * (q2 + max x2) from its neighbors' (as in _assert_same_neighbors):
+# the pools are the same candidates wherever their form's ranking separates
+# them.
+NARROW = ("bfloat16", "int8")
+
+
+@pytest.fixture
+def knn_precision():
+    """Set the form in both packages for one test, and unset it after."""
+
+    def set_both(precision):
+        config.set("knn_precision", precision)
+        jax_config.set("knn.pallas_precision", precision)
+        jax_config.set("knn.selection", "pallas_fused")
+
+    yield set_both
+    config.unset("knn_precision")
+    jax_config.unset("knn.pallas_precision")
+    jax_config.unset("knn.selection")
+
+
+def _search_data(n, d, nq, seed, mask_frac):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    X[n // 2] = X[n // 10]  # exact ties
+    Q = np.concatenate([X[: nq - 4], rng.normal(size=(4, d)).astype(np.float32)])
+    valid = rng.random(n) > mask_frac
+    return Q, X, valid
+
+
+@pytest.mark.parametrize("precision", NARROW)
+@pytest.mark.parametrize("n, d, nq, k, mask_frac, seed",
+                         [(997, 32, 33, 10, 0.2, 0), (600, 32, 20, 3, 0.0, 7), (800, 32, 17, 25, 0.5, 13)])
+def test_exact_knn_single_narrow_forms_match_the_jax_package(
+    precision, n, d, nq, k, mask_frac, seed, knn_precision
+):
+    Q, X, valid = _search_data(n, d, nq, seed, mask_frac)
+    knn_precision(precision)
+    want = [np.asarray(a) for a in jax_ops_knn.exact_knn_single(Q, X, valid, k)]
+    t = torch.from_numpy
+    got = [a.numpy() for a in ops_knn.exact_knn_single(t(Q), t(X), t(valid), k)]
+    assert got[0].dtype == np.float32 and got[1].dtype == np.int32
+    rtol = d * 2.0**-23
+    inval = ~valid[got[1]]
+    np.testing.assert_array_equal(got[0][inval], np.float32(selection.INVALID_D2))
+    np.testing.assert_allclose(got[0][~inval], want[0][~inval], rtol=rtol, atol=0)
+    Q64, X64 = Q.astype(np.float64), X.astype(np.float64)
+    d64 = ((Q64[:, None, :] - X64[None, :, :]) ** 2).sum(-1)
+    d64 = np.where(valid[None, :], d64, float(selection.INVALID_D2))
+    tol = 2e-5 * ((Q64 ** 2).sum(1) + (X64[valid] ** 2).sum(1).max())
+    ref = np.take_along_axis(d64, want[1].astype(np.int64), 1)
+    gap_lo = np.diff(ref, axis=1, prepend=-np.inf)
+    gap_hi = np.diff(ref, axis=1, append=np.inf)
+    sure = (gap_lo > tol[:, None]) & (gap_hi > tol[:, None])
+    np.testing.assert_array_equal(got[1][sure], want[1][sure])
+    assert sure.mean() > 0.8
+
+
+@pytest.mark.parametrize("precision", NARROW)
+@pytest.mark.parametrize("k", [1, 10, 33])
+def test_returned_neighbors_are_the_rerank_of_their_ids_bit_for_bit(precision, k):
+    """The re-rank invariant: the returned (d2, ids) are parity_rerank_sq of
+    the returned ids, bit for bit; invalid slots at the sentinel exactly; and
+    the re-ranked d2 are the difference form's f32 values."""
+    Q, X, valid = (torch.from_numpy(a) for a in _search_data(700, 19, 25, k, 0.3))
+    d2, ids = ops_knn.exact_knn_single(Q, X, valid, k, precision=precision)
+    d2b, idsb = ops_knn.parity_rerank_sq(Q, X, valid, ids, k)
+    assert torch.equal(d2.view(torch.int32), d2b.view(torch.int32)) and torch.equal(ids, idsb)
+    diff = torch.sum((X[ids.long()] - Q[:, None, :]) ** 2, dim=-1)
+    ok = valid[ids.long()]
+    assert torch.equal(d2[ok], diff[ok])
+    assert bool((d2[~ok] == selection.INVALID_D2).all())
+
+
+@pytest.mark.parametrize("block", [1, 4, None])
+def test_parity_rerank_sq_blocks_change_nothing(block):
+    Q, X, valid = (torch.from_numpy(a) for a in _search_data(300, 7, 12, 5, 0.2))
+    cand = torch.from_numpy(np.stack([np.random.default_rng(i).permutation(300)[:30]
+                                      for i in range(12)]).astype(np.int32))
+    whole = ops_knn.parity_rerank_sq(Q, X, valid, cand, 8, block=1000)
+    got = ops_knn.parity_rerank_sq(Q, X, valid, cand, 8, block=block)
+    assert torch.equal(got[0], whole[0]) and torch.equal(got[1], whole[1])
+
+
+def test_knn_precision_resolves_caller_then_set_then_env_then_default(monkeypatch):
+    monkeypatch.delenv("SRML_TORCH_KNN_PRECISION", raising=False)
+    config.unset("knn_precision")
+    assert selection.resolve_fused_precision() == "float32"
+    monkeypatch.setenv("SRML_TORCH_KNN_PRECISION", "int8")
+    assert selection.resolve_fused_precision() == "int8"
+    config.set("knn_precision", "bfloat16")
+    try:
+        assert selection.resolve_fused_precision() == "bfloat16"
+        assert selection.resolve_fused_precision("float32") == "float32"
+        config.set("knn_precision", "fp8")
+        with pytest.raises(ValueError, match="knn_precision"):
+            selection.resolve_fused_precision()
+    finally:
+        config.unset("knn_precision")
+    with pytest.raises(ValueError, match="knn_precision"):
+        selection.resolve_fused_precision("float16")
+    assert selection.FUSED_PRECISIONS == ("float32", "bfloat16", "int8")
+
+
+@pytest.mark.parametrize("precision", NARROW)
+def test_k_whose_pool_exceeds_the_kernels_limit_raises_in_a_narrow_form(precision):
+    """A narrow form's pool is k + max(8, k // 4): 256 = K_MAX at k = 205."""
+    items, queries = _data(n_items=400, n_queries=2, d=3, seed=9)
+    t = torch.from_numpy
+    valid = torch.ones(400, dtype=torch.bool)
+    d2, _ = ops_knn.exact_knn_single(t(queries), t(items), valid, 205, precision=precision)
+    assert d2.shape == (2, 205)
+    with pytest.raises(ValueError, match="K_MAX"):
+        ops_knn.exact_knn_single(t(queries), t(items), valid, 206, precision=precision)
+    model = NearestNeighbors(k=206, inputCol="features", device="cpu").fit(items)
+    config.set("knn_precision", precision)
+    try:
+        with pytest.raises(ValueError, match="K_MAX"):
+            model.kneighbors(queries)
+    finally:
+        config.unset("knn_precision")
+    assert model.kneighbors(queries)[2]["indices"].iloc[0].shape == (206,)  # float32: fits
+
+
+@pytest.mark.parametrize("precision", NARROW)
+def test_kneighbors_and_join_in_a_narrow_form(precision, knn_precision):
+    """The estimator in a narrow form: the JAX package's neighbors under the
+    same form (the rule above), its spans name the form, and the items'
+    narrow operand is made once and reused."""
+    items, queries = _data(n_items=600, n_queries=30, d=32, seed=3)
+    knn_precision(precision)
+    want = jax_knn.NearestNeighbors(k=9, inputCol="features").fit(_frame(items)).kneighbors(
+        _frame(queries))[2]
+    model = NearestNeighbors(k=9, inputCol="features", device="cpu").fit(items)
+    with record_spans() as spans:
+        got = model.kneighbors(_frame(queries))[2]
+    assert spans.attrs["select"] == {"precision": precision, "k": 17}
+    assert spans.attrs["rerank"] == {"precision": precision, "k": 9}
+    assert {"narrow_items", "select", "rerank"} <= set(spans)
+    _assert_same_neighbors(_arrays(got), _arrays(want), items, queries)
+    with record_spans() as again:
+        joined = model.exactNearestNeighborsJoin(_frame(queries), distCol="dist")
+    assert "narrow_items" not in again  # the operand is kept with the staged items
+    ids, dist = _arrays(got)
+    np.testing.assert_array_equal(joined.iloc[:, 1].to_numpy(), ids.reshape(-1))
+    np.testing.assert_array_equal(joined["dist"].to_numpy(), dist.reshape(-1))
+
+
+# ---------------------------------------------------------------- non-finite features
+
+
+@pytest.mark.parametrize("precision", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("bad", [np.nan, np.inf])
+def test_a_non_finite_query_raises_before_any_kernel(precision, bad):
+    items, queries = _data(n_items=50, n_queries=6, d=4, seed=4)
+    queries[3, 1] = bad
+    model = NearestNeighbors(k=3, inputCol="features", device="cpu").fit(items)
+    config.set("knn_precision", precision)
+    try:
+        for call in (model.kneighbors, model.exactNearestNeighborsJoin):
+            with pytest.raises(ValueError, match="row 3 has a NaN or infinite"):
+                call(_frame(queries))
+    finally:
+        config.unset("knn_precision")
+
+
+def test_a_nan_item_is_never_returned_while_finite_items_fill_k():
+    """A NaN item's distances are NaN: the plain selection ranks them above
+    every number (and the kernel takes the item as invalid, as its norm is
+    NaN), so with k below the finite items it never comes back."""
+    items, queries = _data(n_items=60, n_queries=5, d=4, seed=5)
+    items[[7, 30]] = np.nan
+    model = NearestNeighbors(k=20, inputCol="features", device="cpu").fit(items)
+    ids, dist = _arrays(model.kneighbors(queries)[2])
+    assert not np.isin(ids, [7, 30]).any() and np.isfinite(dist).all()

@@ -219,3 +219,92 @@ def test_jax_fitted_forest_carries_across(kind):
         np.testing.assert_array_equal(back.transform(df)["prediction"].to_numpy(),
                                       jout["prediction"].to_numpy())
     np.testing.assert_array_equal(port.featureImportances, jax_model.featureImportances)
+
+
+# The parity rule for real-valued stats (a regressor's w y and w y^2 sums, or
+# any forest under a real-valued weightCol): the two packages add the same
+# terms in another order, so a node's gains differ in their last bits, and a
+# node whose best and second-best gains lie within GAIN_TOL of each other (or
+# whose best gain lies within GAIN_TOL of minInfoGain = 0) may split another
+# way. So: wherever a node is reached in both trees and its best gain is
+# separated from its second best and from 0 by more than GAIN_TOL, the trees
+# split it alike (feature, threshold) and hold its value within VALUE_RTOL;
+# below a near tie nothing is compared. Predictions agree within VALUE_RTOL on
+# every row whose path in every tree passes separated nodes only. Forests under
+# integer weights still compare bit for bit (the tests above). GAIN_TOL: some
+# 80 f32 ulps of gains below 0.5 (0/1 labels), sums of 600 weighted rows in
+# another order.
+GAIN_TOL = 1e-5
+VALUE_RTOL = 1e-5
+
+
+def _separated_slots(gains, n_trees, depth):
+    """{(tree, heap slot)} of the nodes whose best gain is more than GAIN_TOL
+    above both their second best and 0, from the port's per-level gains in
+    fit order (tree by tree, level by level)."""
+    it = iter(gains)
+    out = set()
+    for i in range(n_trees):
+        for t in range(depth):
+            top = torch.topk(next(it).reshape(2**t, -1), 2, dim=1).values
+            for w in range(2**t):
+                best, second = float(top[w, 0]), float(top[w, 1])
+                if best - second > GAIN_TOL and best > GAIN_TOL:
+                    out.add((i, 2**t + w))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["classifier", "regressor"])
+def test_real_valued_weights_follow_the_parity_rule(kind, monkeypatch):
+    """600 x 5, 2 trees of depth 4, all features, weights from uniform(0, 2):
+    the rule above, against the JAX estimator."""
+    rng = np.random.default_rng(0)
+    n, d, n_trees, depth = 600, 5, 2, 4
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    y = (X[:, 0] + 0.5 * X[:, 1] + rng.normal(0, 0.5, n) > 0).astype(np.float64)
+    df = pd.DataFrame({"features": list(X), "label": y, "w": rng.uniform(0, 2, n)})
+    params = dict(numTrees=n_trees, maxDepth=depth, featureSubsetStrategy="all", seed=1,
+                  weightCol="w")
+    gains = []
+    split_gains = trees._split_gains
+
+    def recorded(*args, **kwargs):
+        gains.append(split_gains(*args, **kwargs))
+        return gains[-1]
+
+    monkeypatch.setattr(trees, "_split_gains", recorded)
+    est, jax_est = ((RandomForestClassifier, JaxRFC) if kind == "classifier"
+                    else (RandomForestRegressor, JaxRFR))
+    model = est(device="cpu", **params).fit(df)
+    jax_model = jax_est(num_workers=1, **params).fit(df)
+    sep = _separated_slots(gains, n_trees, depth)
+    a = model.get_model_attributes()
+    b = {key: np.asarray(v) for key, v in jax_model.get_model_attributes().items()}
+    compared = 0
+    for i in range(n_trees):
+        todo = [1]
+        while todo:
+            s = todo.pop()
+            np.testing.assert_allclose(a["value"][i][s], b["value"][i][s], rtol=VALUE_RTOL,
+                                       atol=VALUE_RTOL)
+            if (i, s) not in sep or a["is_leaf"][i][s]:
+                continue  # a leaf, or a near tie: its subtree may differ
+            compared += 1
+            assert not b["is_leaf"][i][s]
+            assert a["feature"][i][s] == b["feature"][i][s], (i, s)
+            assert a["threshold"][i][s] == b["threshold"][i][s], (i, s)
+            todo += [2 * s, 2 * s + 1]
+    assert compared >= 2 * n_trees  # the rule compared real structure
+    # rows whose path in every tree passes separated nodes only
+    sure = np.ones(n, bool)
+    for i in range(n_trees):
+        p = np.ones(n, np.int64)
+        for _ in range(depth):
+            leaf = a["is_leaf"][i][p]
+            sure &= leaf | np.array([(i, s) in sep for s in p])
+            go = X[np.arange(n), np.maximum(a["feature"][i][p], 0)] > a["threshold"][i][p]
+            p = np.where(leaf, p, 2 * p + go)
+    assert sure.mean() > 0.25  # a real share of the rows is compared
+    got = model.transform(df)["prediction"].to_numpy()
+    want = jax_model.transform(df)["prediction"].to_numpy()
+    np.testing.assert_allclose(got[sure], want[sure], rtol=VALUE_RTOL, atol=VALUE_RTOL)

@@ -53,10 +53,11 @@ def _f64(Q, X, valid):
     return d2, tol
 
 
-def _check(d2, ids, Q, X, valid, k, other=None):
+def _check(d2, ids, Q, X, valid, k, other=None, ref=None):
     """Hold (d2, ids) to f64 within tol, and to `other` (another package's
-    result on the same inputs) as the module docstring says."""
-    ref, tol = _f64(Q, X, valid)
+    result on the same inputs) as the module docstring says. `ref` is (f64 d2,
+    tol) of a narrow form (_narrow_f64) in place of the exact one."""
+    ref, tol = _f64(Q, X, valid) if ref is None else ref
     nq, n = ref.shape
     k = min(k, n)
     assert d2.shape == ids.shape == (nq, k)
@@ -371,3 +372,105 @@ def test_hard_selection_inputs_match_the_jax_package(kind, n, d, nq, k, tail):
         order = np.concatenate([np.nonzero(valid)[0], np.nonzero(~valid)[0]])[: min(k, n)]
         np.testing.assert_array_equal(ids, np.tile(order, (nq, 1)))
         np.testing.assert_array_equal(want[1], np.tile(order, (nq, 1)))
+
+
+# The narrow forms (bfloat16, int8) are held to the f64 value of their own
+# distances, the cross term of the rounded or quantized operands in f64
+# (_narrow_f64), with tol_i = RTOL_FORM * (q2_i + max valid x2):
+#   * int8: 1e-5, the f32 form's: the int32 sums are exact in both packages,
+#     and d2 differs from f64 only by the rescale, the epilogue and the norms'
+#     summation order;
+#   * bfloat16: 1e-5 + d * 2^-23: the f32 sums of the exact bf16 products are
+#     taken in another order, at most d * 2^-24 * sum |q x| apart, twice that
+#     in d2.
+# Both packages' pools are held to that reference as the f32 form's results
+# are held to f64 (_check), and so to each other.
+
+
+def _narrow_f64(Q, X, valid, precision):
+    """(nq, n) f64 d2 of a narrow form, invalid items at the sentinel, and tol."""
+    Qt, Xt = torch.from_numpy(Q), torch.from_numpy(X)
+    if precision == "bfloat16":
+        cross = Qt.bfloat16().double() @ Xt.bfloat16().double().T
+        rtol = 1e-5 + Q.shape[1] * 2.0**-23
+    else:
+        (qq, sq), (xq, sx) = topk.quantize_rows(Qt), topk.quantize_rows(Xt)
+        cross = (qq.double() @ xq.double().T) * sq.double()[:, None] * sx.double()[None, :]
+        rtol = 1e-5
+    q2 = (Qt.double() ** 2).sum(1)
+    x2 = (Xt.double() ** 2).sum(1)
+    d2 = (q2[:, None] - 2.0 * cross + x2[None, :]).clamp(min=0.0).numpy()
+    d2 = np.where(valid[None, :], d2, float(SENTINEL))
+    x2max = float(x2[torch.from_numpy(valid)].max()) if valid.any() else 0.0
+    return d2, rtol * (q2.numpy() + x2max)
+
+
+@pytest.mark.parametrize("precision", ["bfloat16", "int8"])
+@pytest.mark.parametrize(
+    "n, d, nq, k, mask_frac",
+    [(997, 13, 33, 10, 0.2), (1500, 32, 41, 33, 0.0), (603, 5, 17, 1, 0.5), (250, 29, 9, 64, 0.1)],
+)
+def test_narrow_forms_match_the_pallas_kernel_in_interpret_mode(precision, n, d, nq, k, mask_frac):
+    """topk_plain in each narrow form against the JAX package's Pallas kernel
+    in the same form, in interpret mode, at the oversampled pool width."""
+    Q, X, valid = _data(n, d, nq, seed=n + k, mask_frac=mask_frac)
+    kc = topk.oversample_width(k, n, precision)
+    want = jax_ps.fused_topk(jnp.asarray(Q), jnp.asarray(X), jnp.asarray(valid), kc,
+                             precision=precision, interpret=True)
+    want = tuple(np.asarray(a) for a in want)
+    t = torch.from_numpy
+    got = topk.topk_plain(t(Q), t(X), t(valid), kc, precision=precision)
+    got = tuple(a.numpy() for a in got)
+    ref = _narrow_f64(Q, X, valid, precision)
+    _check(*want, Q, X, valid, kc, ref=ref)
+    _check(*got, Q, X, valid, kc, other=want, ref=ref)
+
+
+@pytest.mark.parametrize("precision", ["bfloat16", "int8"])
+def test_narrow_cpu_wrapper_runs_the_plain_version_with_a_cached_item_operand(precision):
+    """fused_topk on CPU tensors is topk_plain, with X's narrow operand made
+    by the wrapper or passed in, and counts no launch of any form."""
+    Q, X, valid = (torch.from_numpy(a) for a in _data(300, 21, 20, seed=11, mask_frac=0.1))
+    items = topk.narrow_rows(X, precision)
+    assert items.rows.shape == (300, 24 if precision == "bfloat16" else 32)
+    assert not items.rows[:, 21:].any()  # zero padding to a whole 16 bytes
+    before = [getattr(topk.fused_topk, c) for c in topk.LAUNCH_COUNTERS.values()]
+    got = topk.fused_topk(Q, X, valid, 9, precision=precision)
+    cached = topk.fused_topk(Q, X, valid, 9, precision=precision, items=items)
+    want = topk.topk_plain(Q, X, valid, 9, precision=precision)
+    for a in (got, cached):
+        assert torch.equal(a[0], want[0]) and torch.equal(a[1], want[1])
+    assert [getattr(topk.fused_topk, c) for c in topk.LAUNCH_COUNTERS.values()] == before
+
+
+def test_quantize_rows_is_the_tpu_kernels_quantization():
+    """s = max |row| / 127 and round(row / max(s, 1e-30)), half to even; a
+    zero row quantizes to zeros."""
+    A = torch.tensor([[127.0, -63.5, 0.5, 1.5], [0.0, 0.0, 0.0, 0.0], [-2.54, 1.27, 0.0, 0.01]])
+    q, s = topk.quantize_rows(A)
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    np.testing.assert_array_equal(q[0].numpy(), [127, -64, 0, 2])  # -63.5 and 0.5: to even
+    np.testing.assert_array_equal(q[1].numpy(), [0, 0, 0, 0])
+    assert s[1] == 0.0 and int(q[2].abs().max()) == 127
+    s_jax = jnp.max(jnp.abs(jnp.asarray(A.numpy())), axis=1, keepdims=True) / 127.0
+    q_jax = jnp.round(jnp.asarray(A.numpy()) / jnp.maximum(s_jax, 1e-30)).astype(jnp.int8)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(q_jax))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(s_jax)[:, 0])
+
+
+@pytest.mark.parametrize(
+    "k, n, precision, want",
+    [(10, 1000, "float32", 10), (10, 1000, "bfloat16", 18), (100, 1000, "int8", 125),
+     (100, 110, "int8", 110), (205, 10**6, "int8", 256), (206, 10**6, "bfloat16", 257)],
+)
+def test_oversample_width_is_the_jax_packages(k, n, precision, want):
+    assert topk.oversample_width(k, n, precision) == want
+    assert jax_ps.oversample_width(k, n, precision) == want
+
+
+def test_unknown_form_raises():
+    Q, X, valid = (torch.from_numpy(a) for a in _data(50, 4, 5, seed=12, mask_frac=0.0))
+    with pytest.raises(ValueError, match="precision"):
+        topk.fused_topk(Q, X, valid, 3, precision="float16")
+    with pytest.raises(ValueError, match="narrow_rows"):
+        topk.narrow_rows(X, "float32")
