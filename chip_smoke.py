@@ -31,6 +31,17 @@ non-zero exit code; nothing is caught):
    the three top-k forms with NaN query and item rows against their plain
    versions, assign and Lloyd with NaN rows (center 0). The histogram kernels
    on real-valued stats: three launches bit-equal.
+   The bf16-split forms (n_split 1: KMeans under fast_math; n_split 2:
+   parity_precision="high"): the Lloyd kernel's unit-weight and weighted forms
+   at 1 and 2, assign and the Gram kernels (xtx, xtxy) at 2, at the small
+   shapes and at the main shape, each against its plain version (the Lloyd and
+   assign labels within the near ties of the form's own criterion, the Gram
+   kernels against the form's exact value as the f32 forms against f64), and
+   on discriminating data: flip_data, on which the split forms put every row in
+   another center than f32 does (kernel counts and labels equal to plain), and
+   split_data, on which the two-part split falls short of every f32 product by
+   3·2^-18 of it (kernel within SPLIT_RTOL_* of the form's exact value, more
+   than 10 times that from f32).
 3. Main paths, through the estimators, each driven with every kernel's launch
    counter zeroed just before it and read just after; every kernel of a path
    must have run in it:
@@ -66,6 +77,12 @@ non-zero exit code; nothing is caught):
      fit's (RF_REG_RTOL, RF_REG_MOVED). These run last, after the earlier paths' data is
      freed, with their own phases 2b (every level of a tree held to plain) and
      4 (times at widths 1 and 32).
+   * the same paths in the split forms, against the f32 fits of the run:
+     KMeans (unit and weighted) under fast_math and under "high", PCA under
+     "high", and LinearRegression OLS under "high" with its f32 fit beside it on
+     the first N_LR_HIGH rows; each form's launch counter must move, and no
+     other form's (KM_FORM_RTOL, FIT_TIE_RTOL; explained variance within 1e-4;
+     coefficients within 1e-3).
    The stages inside each call (staging, init, Lloyd loop, normal equations,
    solve, core mask, propagation, output construction...) are timed by the
    port's spans (spark_rapids_ml_torch.utils.record_spans), which synchronize
@@ -84,7 +101,10 @@ non-zero exit code; nothing is caught):
    published peaks (f32 on the CUDA cores, and for the 3xTF32 kernels, xtx,
    xtxy and topk, also three TF32 operations per f32 operation on the tensor
    cores; the narrow forms' products at the dense bf16 and int8 peaks); the top-k and Gram kernels' shared memory, launch plan and ptxas
-   report; the cost of the Lloyd loop's per-iteration host sync.
+   report; the cost of the Lloyd loop's per-iteration host sync. The
+   bf16-split forms beside their f32 forms, with their plain versions and a
+   bound of the bytes or of their part products at the bf16 peak (no PyTorch
+   call computes any of them: library none).
 
 The last three lines of standard output are one JSON object with a row per
 kernel, the card's name and power limit as nvidia-smi gives them, and
@@ -114,6 +134,17 @@ DB_MIN_SAMPLES = 10
 DB_NOISE = 0.01  # share of uniform noise rows
 LR_NOISE = 0.5  # std of the label noise
 EN_REG, EN_L1 = 0.01, 0.5
+# LinearRegression OLS under parity_precision="high" and its f32 fit beside it
+# run on the first N_LR_HIGH rows: an 8.4M-row fit is 92% host extraction of the
+# per-row arrays (PERF.md §5)
+N_LR_HIGH = 1 << 20
+# a KMeans fit in a split form against the f32 fit of the same run: each center
+# within KM_FORM_RTOL[n_split] of max |center| (a coordinate is a mean of values
+# rounded to bf16, 2^-9 relative each, or of hi + lo, 2^-17), plus max |x| / the
+# least cluster size for each row that changed cluster; cluster sizes apart by at
+# most twice the rows whose two best f32-fit centers are within FIT_TIE_RTOL
+KM_FORM_RTOL = {1: 2.0**-8, 2: 2.0**-14}
+FIT_TIE_RTOL = 1e-3
 # kNN traffic of the repo's exact-kNN benchmark
 # (benchmark/benchmark/bench_nearest_neighbors.py:16-21): k = 200, the first
 # 100 rows of X as queries
@@ -187,6 +218,14 @@ REPLACES = {
     "topk_int8": "spark_rapids_ml_tpu/ops/pallas_select.py:258",
     "node_bin_hist": "spark_rapids_ml_tpu/ops/pallas_histogram.py:131",
     "segment_hist": "spark_rapids_ml_tpu/ops/pallas_histogram.py:49",
+    # the bf16-split forms (_dot_multipass, pallas_kmeans.py:111, at n_split 1 and 2)
+    "lloyd_bf16": "spark_rapids_ml_tpu/ops/pallas_kmeans.py:187",
+    "lloyd_high": "spark_rapids_ml_tpu/ops/pallas_kmeans.py:187",
+    "lloyd_weighted_bf16": "spark_rapids_ml_tpu/ops/pallas_kmeans.py:136",
+    "lloyd_weighted_high": "spark_rapids_ml_tpu/ops/pallas_kmeans.py:136",
+    "assign_high": "spark_rapids_ml_tpu/ops/pallas_select.py:473",
+    "xtx_high": "spark_rapids_ml_tpu/ops/pallas_xtwx.py:55",
+    "xtxy_high": "spark_rapids_ml_tpu/ops/pallas_xtwx.py:130",
 }
 SOURCE = {
     "xtx": "spark_rapids_ml_torch/csrc/xtx.cu",
@@ -200,6 +239,13 @@ SOURCE = {
     "topk_int8": "spark_rapids_ml_torch/csrc/topk.cu",
     "node_bin_hist": "spark_rapids_ml_torch/csrc/hist.cu",
     "segment_hist": "spark_rapids_ml_torch/csrc/hist.cu",
+    "lloyd_bf16": "spark_rapids_ml_torch/csrc/lloyd.cu",
+    "lloyd_high": "spark_rapids_ml_torch/csrc/lloyd.cu",
+    "lloyd_weighted_bf16": "spark_rapids_ml_torch/csrc/lloyd.cu",
+    "lloyd_weighted_high": "spark_rapids_ml_torch/csrc/lloyd.cu",
+    "assign_high": "spark_rapids_ml_torch/csrc/assign.cu",
+    "xtx_high": "spark_rapids_ml_torch/csrc/xtx.cu",
+    "xtxy_high": "spark_rapids_ml_torch/csrc/xtx.cu",
 }
 TIE_RTOL = 1e-5  # two best centers closer than this (relative) may swap in f32
 # a pair whose f64 d2 lies within this share of (|q| + |x|)^2 of eps^2 may fall on
@@ -280,10 +326,14 @@ def dbscan_blobs(n: int, d: int, k: int, seed: int):
 # ------------------------------------------------------------ comparisons
 
 
-def near_ties(X, C, full: bool, rows_mask=None):
-    """Rows whose two best centers are within TIE_RTOL of each other, relative to
-    the size of the terms the f32 criterion is made of (|x|² + |c|²), in f64."""
+def near_ties(X, C, full: bool, rows_mask=None, n_split: int = 3, rtol: float = TIE_RTOL):
+    """Rows whose two best centers are within rtol of each other, relative to
+    the size of the terms the f32 criterion is made of (|x|² + |c|²), in f64,
+    with the cross term of the form at n_split: the exact products of its bf16
+    parts (ops/_precision.py), so that only the order of the f32 sums is left."""
     import torch
+
+    from spark_rapids_ml_torch.ops._precision import F32, multipass, split_bf16
 
     n = X.shape[0]
     out = torch.zeros(n, dtype=torch.bool, device=X.device)
@@ -291,15 +341,21 @@ def near_ties(X, C, full: bool, rows_mask=None):
         return out
     C64 = C.double()
     c2 = (C64 * C64).sum(1)
+    Cp = split_bf16(C, n_split) if n_split < F32 else None
     for s in range(0, n, 1 << 20):
-        x = X[s : s + (1 << 20)].double()
+        xf = X[s : s + (1 << 20)]
+        x = xf.double()
         x2 = (x * x).sum(1, keepdim=True)
-        crit = c2[None, :] - 2.0 * (x @ C64.T)
+        if Cp is None:
+            cross = x @ C64.T
+        else:
+            cross = multipass(split_bf16(xf, n_split), Cp, lambda a, b: a.double() @ b.double().T)
+        crit = c2[None, :] - 2.0 * cross
         if full:
             crit = crit + x2
         two = torch.topk(crit, 2, dim=1, largest=False).values
         scale = x2[:, 0] + c2.max()
-        out[s : s + x.shape[0]] = (two[:, 1] - two[:, 0]) <= TIE_RTOL * scale
+        out[s : s + x.shape[0]] = (two[:, 1] - two[:, 0]) <= rtol * scale
     if rows_mask is not None:
         out &= rows_mask
     return out
@@ -328,24 +384,27 @@ def check_xtx(X, n_valid: int, label: str) -> dict:
     return {"max_abs_err": float((s2_k - s2_p).abs().max())}
 
 
-def xtxy_f64(X, y, n_valid: int):
+def xtxy_f64(X, y, n_valid: int, n_split: int = 3):
     """(XᵀX, colsum X, Xᵀy, Σy, Σy²) over rows < n_valid in f64 on the card, by
-    chunks of rows."""
+    chunks of rows, as entries of the Gram of Z = [X | y | 1]; with n_split < 3
+    the two-part bf16 split's value: the exact products of Z's parts
+    (ops/_precision.py), summed in f64."""
     import torch
 
+    from spark_rapids_ml_torch.ops._precision import multipass, split_bf16
+
     d = X.shape[1]
-    s2 = torch.zeros((d, d), dtype=torch.float64, device=X.device)
-    s1 = torch.zeros((d,), dtype=torch.float64, device=X.device)
-    xty = torch.zeros((d,), dtype=torch.float64, device=X.device)
-    ys = torch.zeros((2,), dtype=torch.float64, device=X.device)
+    G = torch.zeros((d + 2, d + 2), dtype=torch.float64, device=X.device)
     for s in range(0, n_valid, 1 << 20):
         e = min(s + (1 << 20), n_valid)
-        x, yv = X[s:e].double(), y[s:e].double()
-        s2 += x.T @ x
-        s1 += x.sum(0)
-        xty += x.T @ yv
-        ys += torch.stack([yv.sum(), yv @ yv])
-    return s2, s1, xty, ys[0], ys[1]
+        Z = torch.cat([X[s:e], y[s:e, None], torch.ones_like(y[s:e, None])], dim=1)
+        if n_split < 3:
+            pz = split_bf16(Z, n_split)
+            G += multipass(pz, pz, lambda a, b: a.double().T @ b.double())
+        else:
+            Z = Z.double()
+            G += Z.T @ Z
+    return G[:d, :d], G[:d, d + 1], G[:d, d], G[d, d + 1], G[d, d]
 
 
 def check_xtxy(X, y, n_valid: int, label: str) -> dict:
@@ -404,17 +463,18 @@ def check_count(Q, X, valid, eps2: float, label: str):
     return {"max_abs_err": float(d_kp.max())}, ck, cp, near
 
 
-def check_lloyd(X, C, n_valid: int, w, label: str) -> dict:
+def check_lloyd(X, C, n_valid: int, w, label: str, n_split: int = 3) -> dict:
     import torch
 
     from spark_rapids_ml_torch.ops.lloyd import lloyd_step, lloyd_step_plain
 
-    s_k, c_k, i_k = lloyd_step(X, C, n_valid, w)
-    s_p, c_p, i_p = lloyd_step_plain(X, C, n_valid, w)
+    s_k, c_k, i_k = lloyd_step(X, C, n_valid, w, n_split)
+    s_p, c_p, i_p = lloyd_step_plain(X, C, n_valid, w, n_split)
+    label = f"{label} n_split={n_split}"
     n = X.shape[0]
     valid = torch.arange(n, device=X.device) < n_valid
     wv = valid.float() if w is None else torch.where(valid, w, torch.zeros_like(w))
-    ties = near_ties(X, C, full=False, rows_mask=wv > 0)
+    ties = near_ties(X, C, full=False, rows_mask=wv > 0, n_split=n_split)
     n_ties = int(ties.sum())
     wmax = float(wv.max()) if n else 0.0
     count_diff = float((c_k - c_p).abs().sum())
@@ -431,17 +491,202 @@ def check_lloyd(X, C, n_valid: int, w, label: str) -> dict:
     return {"max_abs_err": sums_err}
 
 
-def check_assign(X, C, label: str) -> dict:
+def check_assign(X, C, label: str, n_split: int = 3) -> dict:
     from spark_rapids_ml_torch.ops.select import assign, assign_plain
 
-    a_k = assign(X, C)
-    a_p = assign_plain(X, C)
-    n_ties = int(near_ties(X, C, full=True).sum())
+    a_k = assign(X, C, n_split)
+    a_p = assign_plain(X, C, n_split)
+    label = f"{label} n_split={n_split}"
+    n_ties = int(near_ties(X, C, full=True, n_split=n_split).sum())
     mismatches = int((a_k != a_p).sum())
     log(f"  assign {label}: label mismatches {mismatches} (near ties {n_ties})")
     require(mismatches <= n_ties, f"assign {label}: {mismatches} mismatches > {n_ties} ties")
     require(int(a_k.min()) >= 0 and int(a_k.max()) < C.shape[0], f"assign {label}: range")
     return {"max_abs_err": float(mismatches)}
+
+
+# ------------------------------------------------------ the bf16-split forms
+
+SPLIT_FORMS = {1: "bf16", 2: "high"}  # n_split -> the suffix of a form's name
+# A split form of the Gram kernels on split_data, per entry, against the form's
+# exact value (the exact part products summed in f64), as a share of the sum of
+# |products| (|X|ᵀ|X|, ...): at 401 rows every f32 sum is exact too, so to a
+# rounding or two (SPLIT_RTOL_EXACT); at the main shape the kernel's f32 sums'
+# error (3e-7 of f64 in the f32 form). The plain versions are held to the exact
+# value as check_xtx holds them to f64: cuBLAS's f32 S2 of the 8,388,608 x 256
+# main X is 3.1e-5 of max |S2| off f64, its sums of the parts' products 9e-5
+# off the kernel's, on an H100. The two-part split falls short of f32 by
+# 3·2^-18 ≈ 1.14e-5 of every product of split_data, the gap that must exceed
+# 10 tol.
+SPLIT_RTOL_EXACT = 2.0**-22
+SPLIT_RTOL_MAIN = 1e-6
+SPLIT_ATOL = 1e-5  # a Lloyd form's sums against its plain version: of max |plain|
+
+
+def form_name(base: str, n_split: int) -> str:
+    return base if n_split == 3 else f"{base}_{SPLIT_FORMS[n_split]}"
+
+
+def flip_data(torch, n: int, d: int, k: int, weights: str):
+    """The discriminating data of the Lloyd and assignment forms: rows and
+    centers on which the bf16-split forms (n_split 1 and 2) and f32 choose
+    different centers, with every product and sum of the split forms exact.
+    Center 0 is the origin; for P = min(k, d + 1) - 1 patterns, center 1 + p has
+    only column j_p = p d // P, at 2^e (2 + 2^-8) with e = -3, 0, 4 in turn;
+    row i has only column j_p, p = i mod P, at x = 2^e (1 + 2^-9 + 2^-18), whose
+    bf16 parts are hi 2^e and lo 2^(e-9), 2^(e-18) left over. In both split
+    forms c2 - 2 x.c is +2^(2e - 16) (the part products and their sums are
+    exact); in f32 x.c rounds once, to 2^(2e) (2 + 2^-7 + 2^-16), and it is
+    -2^(2e - 16). So the split forms put every row in center 0 and f32 each in
+    its center 1 + p, and the full criterion |x|^2 - 2 x.c + |c|^2 orders them
+    alike. Weights ("lo": u (1 + 2^-9), lo part 2^-9 u; "int": u; u uniform in
+    0..3, 0..2 for "int"): a center's sums of parts stay exact up to about 10,000
+    rows with "lo", and its counts up to 2^24 with "int". Returns (X, C, w)."""
+    P = min(k, d + 1) - 1
+    gen = torch.Generator("cuda").manual_seed(SEED + n + d)
+    p = torch.arange(n, device="cuda") % P
+    cols = (torch.arange(P, device="cuda") * d) // P
+    e = torch.tensor([-3.0, 0.0, 4.0], device="cuda")[torch.arange(P, device="cuda") % 3]
+    X = torch.zeros((n, d), device="cuda")
+    X[torch.arange(n, device="cuda"), cols[p]] = torch.exp2(e[p]) * (1.0 + 2.0**-9 + 2.0**-18)
+    C = torch.zeros((P + 1, d), device="cuda")
+    C[torch.arange(1, P + 1, device="cuda"), cols] = torch.exp2(e) * (2.0 + 2.0**-8)
+    u = torch.randint(0, 4 if weights == "lo" else 3, (n,), device="cuda", generator=gen).float()
+    return X, C, u * (1.0 + 2.0**-9) if weights == "lo" else u
+
+
+def check_lloyd_flip(X, C, w, n_split: int, label: str) -> None:
+    """The discriminating check of a Lloyd form on flip_data: kernel and plain
+    version equal in counts (exact), the sums within SPLIT_ATOL of max |plain|
+    and the inertia within 1e-5; the plain version puts every row of weight in
+    center 0, the plain f32 form none, and its sums differ from the form's by
+    more than 10 times the sums' tolerance."""
+    from spark_rapids_ml_torch.ops.lloyd import lloyd_step, lloyd_step_plain
+
+    n = X.shape[0]
+    s_k, c_k, i_k = lloyd_step(X, C, n, w, n_split)
+    s_p, c_p, i_p = lloyd_step_plain(X, C, n, w, n_split)
+    s_f, c_f, _ = lloyd_step_plain(X, C, n, w)
+    total = float(X.shape[0] if w is None else w.sum())
+    tol = SPLIT_ATOL * float(s_p.abs().max())
+    err, gap = float((s_k - s_p).abs().max()), float((s_p - s_f).abs().max())
+    in_rel = abs(float(i_k) - float(i_p)) / max(abs(float(i_p)), 1e-30)
+    log(f"  lloyd flip {label} n_split={n_split}: counts kernel == plain "
+        f"{bool(torch_equal_bits(c_k, c_p))}, center 0 holds {float(c_p[0]):g} of {total:g} "
+        f"(f32 form {float(c_f[0]):g}); sums err {err:.3e}, f32 gap {gap:.3e} (tol {tol:.3e}); "
+        f"inertia rel err {in_rel:.3e}")
+    require(torch_equal_bits(c_k, c_p), f"lloyd flip {label} n_split={n_split}: counts differ")
+    require(err <= tol and in_rel <= 1e-5, f"lloyd flip {label} n_split={n_split}: sums or inertia")
+    require(float(c_p[0]) == total and float(c_f[0]) == 0.0 and gap >= 10 * tol,
+            f"lloyd flip {label} n_split={n_split}: the form is not told apart from f32")
+
+
+def check_assign_flip(X, C, label: str) -> None:
+    """The discriminating check of the assignment's n_split 2 form on
+    flip_data: kernel labels equal to the plain version's, all 0; the plain
+    f32 form's all other than 0."""
+    from spark_rapids_ml_torch.ops.select import assign, assign_plain
+
+    a_k, a_p, a_f = assign(X, C, 2), assign_plain(X, C, 2), assign_plain(X, C)
+    log(f"  assign flip {label} n_split=2: kernel == plain {bool(torch_equal_bits(a_k, a_p))}, "
+        f"rows in center 0: form {int((a_p == 0).sum())}, f32 form {int((a_f == 0).sum())} "
+        f"of {X.shape[0]}")
+    require(torch_equal_bits(a_k, a_p), f"assign flip {label}: kernel labels differ from plain")
+    require(bool((a_p == 0).all()) and bool((a_f != 0).all()),
+            f"assign flip {label}: the form is not told apart from f32")
+
+
+def split_data(torch, n: int, d: int):
+    """The discriminating data of the Gram forms: X (n, d) and y (n,) at
+    a (1 + 2^-9 + 2^-18), a uniform in 4..7: bf16 parts hi a, lo 2^-9 a, and
+    2^-18 a left over, all positive, so the two-part split falls short of
+    every product x x' by the same 3 * 2^-18 of it. Up to about 400 rows
+    every sum of part products is exact."""
+    gen = torch.Generator("cuda").manual_seed(SEED + n + d)
+    f = 1.0 + 2.0**-9 + 2.0**-18
+    X = torch.randint(4, 8, (n, d), device="cuda", generator=gen, dtype=torch.uint8).float() * f
+    y = torch.randint(4, 8, (n,), device="cuda", generator=gen, dtype=torch.uint8).float() * f
+    return X, y
+
+
+def check_gram_split(X, y, n_valid: int, label: str, rtol=None) -> dict:
+    """xtx and xtxy at n_split 2 and their plain versions against the form's
+    exact value (the exact part products summed in f64), as check_xtx holds
+    the f32 forms to f64: each output's error at most twice the plain
+    version's plus 1e-6, relative to its largest entry. On split_data (rtol
+    given) also each kernel entry within rtol of the exact value, as a share
+    of its sum of |products| (the f64 statistics of the positive data), and
+    the form's exact S2 more than 10 rtol off f32's at every entry: the
+    discriminating check."""
+    from spark_rapids_ml_torch.ops.xtwx import xtx, xtx_plain, xtxy, xtxy_plain
+
+    kx, px = xtx(X, n_valid, 2), xtx_plain(X, n_valid, 2)
+    ky, py = xtxy(X, y, n_valid, 2), xtxy_plain(X, y, n_valid, 2)
+    ref, exact = xtxy_f64(X, y, n_valid), xtxy_f64(X, y, n_valid, 2)
+    names = ("S2", "s1", "Xty", "sum y", "sum y^2")
+    rows = list(zip(("xtx " + n for n in names[:2]), kx, px, ref[:2], exact[:2])) + list(
+        zip(("xtxy " + n for n in names), ky, py, ref, exact))
+    parts = []
+    for name, k, p, r, x in rows:
+        ek, ep = rel_err(k, x), rel_err(p, x)
+        parts.append(f"{name} kernel {ek:.3e} plain {ep:.3e}")
+        require(ek <= 2 * ep + 1e-6, f"gram {label}: {name} rel err {ek} (plain {ep})")
+        if rtol is not None:
+            e = float(((k.double() - x).abs() / r).max())
+            require(e <= rtol, f"gram split data {label}: {name} err {e} per sum |products|")
+    log(f"  gram n_split=2 {label}: max rel err vs the form's exact value  " + "  ".join(parts))
+    if rtol is not None:
+        gap = float(((exact[0] - ref[0]).abs() / ref[0]).min())
+        log(f"  gram split data {label}: every kernel entry within {rtol:.3e} of the form's "
+            f"exact value per sum |products|; the form's exact S2 at least {gap:.3e} off f32's")
+        require(gap >= 10 * rtol, f"gram split data {label}: the form is not told apart")
+    return {"xtx_high": {"max_abs_err": max(float((k - p).abs().max()) for k, p in zip(kx, px))},
+            "xtxy_high": {"max_abs_err": max(float((k - p).abs().max()) for k, p in zip(ky, py))}}
+
+
+def phase_split_forms(torch, X, C, w, n_valid: int, label: str, main: bool) -> dict:
+    """Every bf16-split form at one shape: random data (X, C, w) against the
+    plain versions, then flip_data and split_data. Returns each form's
+    max_abs_err on the random data."""
+    n, d = X.shape
+    errs = {}
+    for n_split in (1, 2):
+        errs[form_name("lloyd", n_split)] = check_lloyd(
+            X, C, n_valid, None, f"unit {label}", n_split)
+        errs[form_name("lloyd_weighted", n_split)] = check_lloyd(
+            X, C, n, w, f"weighted {label}", n_split)
+    errs["assign_high"] = check_assign(X, C, label, 2)
+    Xf, Cf, wf = flip_data(torch, n, d, max(C.shape[0], 2), "int" if main else "lo")
+    for n_split in (1, 2):
+        check_lloyd_flip(Xf, Cf, None, n_split, f"unit {label}")
+        check_lloyd_flip(Xf, Cf, wf, n_split, f"weighted {label}")
+    check_assign_flip(Xf, Cf, label)
+    del Xf, Cf, wf
+    return errs
+
+
+def check_kmeans_form(model, ref, X, n_split: int, label: str) -> None:
+    """A KMeans fit in a split form against the f32 fit of the same run (see
+    KM_FORM_RTOL): the same n_iter, centers matched one to one, cluster sizes
+    and centers within their tolerances, inertia within 1e-4."""
+    import torch
+
+    C, Cr = model.cluster_centers_, ref.cluster_centers_
+    perm = ((C[:, None, :] - Cr[None, :, :]) ** 2).sum(-1).argmin(1)
+    require(sorted(perm) == list(range(len(Cr))), f"{label}: centers do not match one to one")
+    sizes = np.array(model.summary.clusterSizes)
+    moved = int(np.abs(sizes - np.array(ref.summary.clusterSizes)[perm]).sum())
+    ties = int(near_ties(X, torch.from_numpy(Cr).cuda(), full=True, rtol=FIT_TIE_RTOL).sum())
+    tol = KM_FORM_RTOL[n_split] * float(np.abs(Cr).max()) + moved * float(X.abs().max()) / max(
+        int(sizes.min()), 1)
+    dc = float(np.abs(C - Cr[perm]).max())
+    in_rel = abs(model.inertia_ - ref.inertia_) / ref.inertia_
+    log(f"  {label} against the f32 fit: n_iter {model.summary.numIter} ({ref.summary.numIter}), "
+        f"cluster sizes apart by {moved} rows (near ties {ties}), centers at most {dc:.3e} "
+        f"apart (tol {tol:.3e}), inertia rel diff {in_rel:.3e}")
+    require(model.summary.numIter == ref.summary.numIter, f"{label}: n_iter differs")
+    require(moved <= 2 * ties, f"{label}: {moved} rows changed cluster")
+    require(dc <= tol and in_rel <= 1e-4, f"{label}: centers or inertia")
 
 
 def topk_f64(Q, X, valid, k: int):
@@ -698,20 +943,24 @@ def phase_small_nonfinite(torch) -> None:
     C = X[torch.from_numpy(rng.choice(5_003, 20, replace=False)).cuda()].clone()
     Xa = X.clone()
     Xa[[7, 4_001], 2] = nan
-    lk, lp = select_mod.assign(Xa, C), select_mod.assign_plain(Xa, C)
-    require(int(lk[7]) == int(lk[4_001]) == int(lp[7]) == int(lp[4_001]) == 0,
-            "assign: a NaN row is not sent to center 0")
+    for n_split in (3, 2):
+        lk, lp = select_mod.assign(Xa, C, n_split), select_mod.assign_plain(Xa, C, n_split)
+        require(int(lk[7]) == int(lk[4_001]) == int(lp[7]) == int(lp[4_001]) == 0,
+                f"assign n_split={n_split}: a NaN row is not sent to center 0")
     fine = torch.ones(Xa.shape[0], dtype=torch.bool, device="cuda")
     fine[[7, 4_001]] = False
     two = torch.zeros(20, device="cuda")
     two[0] = 2.0
-    for step in (lloyd_mod.lloyd_step, lloyd_mod.lloyd_step_plain):
-        c_all = step(Xa, C, Xa.shape[0])[1]
-        c_fine = step(Xa[fine].contiguous(), C, Xa.shape[0] - 2)[1]
-        require(torch.equal(c_all - c_fine, two), f"{step.__name__}: NaN rows not in center 0")
+    for n_split in (3, 2, 1):
+        for step in (lloyd_mod.lloyd_step, lloyd_mod.lloyd_step_plain):
+            c_all = step(Xa, C, Xa.shape[0], None, n_split)[1]
+            c_fine = step(Xa[fine].contiguous(), C, Xa.shape[0] - 2, None, n_split)[1]
+            require(torch.equal(c_all - c_fine, two),
+                    f"{step.__name__} n_split={n_split}: NaN rows not in center 0")
     log(f"  non-finite: count with {len(qbad)} NaN queries and {len(xbad)} NaN items equal to "
         f"plain (NaN rows count 0); top-k f32 / bf16 / int8 NaN-query ids equal to plain, NaN "
-        f"items never returned; assign and Lloyd put NaN rows in center 0")
+        f"items never returned; assign (n_split 3, 2) and Lloyd (3, 2, 1) put NaN rows in "
+        f"center 0")
 
 
 def phase_small_hist_determinism(torch) -> None:
@@ -762,6 +1011,7 @@ def phase_small(torch) -> None:
             check_lloyd(X, C, n_valid, None, f"unit n={n} n_valid={n_valid} d={d} k={k}")
             check_lloyd(X, C, n, w, f"weighted n={n} d={d} k={k}")
             check_assign(X, C, f"n={n} d={d} k={k}")
+            phase_split_forms(torch, X, C, w, n_valid, f"n={n} d={d} k={k}", main=False)
     for d in (1, 33, 257):
         Xh, _ = blobs(n, d, 7, SEED + 3 * d, spread=3.0)
         Xh += np.float32(1.5)
@@ -769,6 +1019,8 @@ def phase_small(torch) -> None:
         X, y = torch.from_numpy(Xh).cuda(), torch.from_numpy(yh).cuda()
         check_xtxy(X, y, n_valid, f"n={n} n_valid={n_valid} d={d}")
         check_xtxy(X, y, n, f"n={n} n_valid={n} d={d}")
+        for nv in (n_valid, n):
+            check_gram_split(X, y, nv, f"n={n} n_valid={nv} d={d}")
     # the Gram kernel's edges: d off the 128-column tile and the mma depth of 8,
     # one column, one past a tile; n_valid 0, 1 and off every 32-row step,
     # chunk and tile edge
@@ -780,6 +1032,9 @@ def phase_small(torch) -> None:
         for nv in (0, 1, 4_099, n_valid):
             check_xtx(X, nv, f"n={n} n_valid={nv} d={d}")
             check_xtxy(X, y, nv, f"n={n} n_valid={nv} d={d}")
+            check_gram_split(X, y, nv, f"n={n} n_valid={nv} d={d}")
+        Xs, ys = split_data(torch, 401, d)  # every sum of part products exact
+        check_gram_split(Xs, ys, 401, f"n=401 d={d}", SPLIT_RTOL_EXACT)
     nq, n_items = 1_777, 5_003  # Q and X differ, neither a multiple of a tile
     for d in (3, 32, 33, 130):  # d <= 32 keeps the query tile resident
         rng = np.random.default_rng(SEED + 100 + d)
@@ -1318,6 +1573,13 @@ def main() -> int:
         "topk_int8": (topk_mod.fused_topk, "int8_launches"),
         "node_bin_hist": (histogram.node_bin_histogram, "launches"),
         "segment_hist": (histogram.segment_histogram, "launches"),
+        "lloyd_bf16": (lloyd_mod.lloyd_step, "launches_bf16"),
+        "lloyd_high": (lloyd_mod.lloyd_step, "launches_high"),
+        "lloyd_weighted_bf16": (lloyd_mod.lloyd_step, "weighted_launches_bf16"),
+        "lloyd_weighted_high": (lloyd_mod.lloyd_step, "weighted_launches_high"),
+        "assign_high": (select_mod.assign, "launches_high"),
+        "xtx_high": (xtwx.xtx, "launches_high"),
+        "xtxy_high": (xtwx.xtxy, "launches_high"),
     }
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
@@ -1360,10 +1622,17 @@ def main() -> int:
     errs["lloyd"] = check_lloyd(X, C, N_MAIN, None, f"unit n={N_MAIN} k={K_MAIN}")
     w = torch.randint(0, 3, (N_MAIN,), device="cuda", generator=gen).float()
     errs["lloyd_weighted"] = check_lloyd(X, C, N_MAIN, w, f"weighted n={N_MAIN} k={K_MAIN}")
-    del w
     errs["assign"] = check_assign(X, C, f"n={N_MAIN} k={K_MAIN}")
     C81 = X[torch.randint(0, N_MAIN, (81,), device="cuda", generator=gen)].clone()
     check_assign(X, C81, f"n={N_MAIN} k=81")
+    # the bf16-split forms: the main data, then flip_data and split_data
+    errs.update(phase_split_forms(torch, X, C, w, N_MAIN, f"n={N_MAIN} k={K_MAIN}", main=True))
+    del w
+    errs.update(check_gram_split(X, y, N_MAIN, f"n={N_MAIN} d={D_MAIN}"))
+    Xs, ys = split_data(torch, N_MAIN, D_MAIN)
+    check_gram_split(Xs, ys, N_MAIN, f"n={N_MAIN} d={D_MAIN}", SPLIT_RTOL_MAIN)
+    del Xs, ys
+    torch.cuda.empty_cache()
     Xdb = torch.from_numpy(Xdb_h).cuda()
     valid_db = torch.ones(N_DB, dtype=torch.bool, device="cuda")
     eps2_db = DB_EPS * DB_EPS
@@ -1433,14 +1702,33 @@ def main() -> int:
             launches[name] += c
         return out
 
+    def under(key, value, call):
+        """call() with the config key set to value, restored after."""
+        torch_config.set(key, value)
+        try:
+            return call()
+        finally:
+            torch_config.unset(key)
+
     pca = run_path("PCA fit", lambda: PCA(k=K_PCA, inputCol="features").fit(Xh))
     proj = run_path("PCA transform", lambda: pca.transform(Xh))
+    pca_hi = run_path("PCA fit, high", lambda: under(
+        "parity_precision", "high", lambda: PCA(k=K_PCA, inputCol="features").fit(Xh)))
     km = run_path("KMeans fit", lambda: KMeans(k=K_MAIN, seed=1).fit(Xh))
     pred = run_path("KMeans transform", lambda: km.transform(Xh))
     rows_h = list(Xh)  # per-row views of X, no copy: the DataFrames' feature column
     w_h = np.random.default_rng(SEED + 2).uniform(0.5, 2.0, N_MAIN).astype(np.float32)
     df_w = pd.DataFrame({"features": rows_h, "weight": w_h})
     kmw = run_path("KMeans fit, weighted", lambda: KMeans(k=K_MAIN, seed=1, weightCol="weight").fit(df_w))
+    # the split forms through KMeans: label -> (model, the f32 fit, n_split)
+    km_forms = {}
+    for key, value, n_split in (("fast_math", True, 1), ("parity_precision", "high", 2)):
+        tag = "fast_math" if n_split == 1 else "high"
+        km_forms[f"KMeans fit, {tag}"] = (run_path(f"KMeans fit, {tag}", lambda: under(
+            key, value, lambda: KMeans(k=K_MAIN, seed=1).fit(Xh))), km, n_split)
+        km_forms[f"KMeans fit, weighted, {tag}"] = (run_path(
+            f"KMeans fit, weighted, {tag}", lambda: under(key, value, lambda: KMeans(
+                k=K_MAIN, seed=1, weightCol="weight").fit(df_w))), kmw, n_split)
     del df_w
     df_lr = pd.DataFrame({"features": rows_h, "label": yh})
     ols = run_path("LinReg OLS fit", lambda: LinearRegression(standardization=True).fit(df_lr))
@@ -1450,7 +1738,13 @@ def main() -> int:
                   lambda: LinearRegression(regParam=EN_REG, elasticNetParam=EN_L1).fit(df_lr))
     en_pred = run_path("LinReg elastic net transform", lambda: en.transform(df_lr))
     en_ev = run_path("LinReg elastic net evaluate", lambda: en.evaluate(df_lr))
-    del df_lr, rows_h
+    del df_lr
+    df_lr1 = pd.DataFrame({"features": rows_h[:N_LR_HIGH], "label": yh[:N_LR_HIGH]})
+    ols1 = run_path("LinReg OLS fit, 1M rows",
+                    lambda: LinearRegression(standardization=True).fit(df_lr1))
+    ols1_hi = run_path("LinReg OLS fit, 1M rows, high", lambda: under(
+        "parity_precision", "high", lambda: LinearRegression(standardization=True).fit(df_lr1)))
+    del df_lr1, rows_h
     db = run_path("DBSCAN fit", lambda: DBSCAN(eps=DB_EPS, min_samples=DB_MIN_SAMPLES).fit(Xdb_h))
     dbscan_mod._propagate_labels.rounds = 0
     db_out = run_path("DBSCAN transform", lambda: db.transform(Xdb_h))
@@ -1501,8 +1795,24 @@ def main() -> int:
             "KMeans did not launch the assign kernel twice")
     require(pc["KMeans fit, weighted"]["lloyd_weighted"] == kmw.summary.numIter >= 1,
             "the weighted KMeans fit did not launch the weighted Lloyd form once per iteration")
-    for label in ("LinReg OLS fit", "LinReg elastic net fit"):
+    for label in ("LinReg OLS fit", "LinReg elastic net fit", "LinReg OLS fit, 1M rows"):
         require(pc[label]["xtxy"] == 1, f"{label} did not launch the xtxy kernel once")
+    # the split forms' fits: each form's counter moved, and no other form's
+    for label, (model, _, n_split) in km_forms.items():
+        base = "lloyd" if "weighted" not in label else "lloyd_weighted"
+        assign_form = "assign_high" if n_split == 2 else "assign"
+        steps = {ns: pc[label][form_name(base, ns)] for ns in (1, 2, 3)}
+        want = {ns: model.summary.numIter if ns == n_split else 0 for ns in (1, 2, 3)}
+        require(steps == want and want[n_split] >= 1,
+                f"{label}: Lloyd launches by n_split {steps}, n_iter {model.summary.numIter}")
+        require(pc[label][assign_form] >= 2 and pc[label]["assign_high" if n_split == 1 else
+                                                          "assign"] == 0,
+                f"{label}: the assignment did not run at the parity tier's form")
+    require(pc["PCA fit, high"]["xtx_high"] == 1 and pc["PCA fit, high"]["xtx"] == 0,
+            "the PCA fit under high did not launch the xtx n_split 2 form once")
+    hi = pc["LinReg OLS fit, 1M rows, high"]
+    require(hi["xtxy_high"] == 1 and hi["xtxy"] == 0,
+            "the LinReg fit under high did not launch the xtxy n_split 2 form once")
     require(pc["DBSCAN transform"]["count"] == 1, "DBSCAN did not launch the count kernel once")
     for label in ("NearestNeighbors kneighbors", "NearestNeighbors join",
                   "NearestNeighbors kneighbors k=10", "NearestNeighbors join k=10"):
@@ -1525,6 +1835,13 @@ def main() -> int:
     ev_rel = float(np.max(np.abs(pca.explained_variance_ - ev_plain) / np.abs(ev_plain)))
     log(f"  PCA explained variance {pca.explained_variance_} vs plain fit: rel err {ev_rel:.3e}")
     require(ev_rel <= 1e-4, f"PCA explained variance rel err {ev_rel}")
+    ev_hi = float(np.max(np.abs(pca_hi.explained_variance_ - pca.explained_variance_)
+                         / np.abs(pca.explained_variance_)))
+    log(f"  PCA under high: explained variance {pca_hi.explained_variance_}, rel diff from the "
+        f"f32 fit {ev_hi:.3e} (tol 1e-4)")
+    require(ev_hi <= 1e-4, f"PCA under high: explained variance rel diff {ev_hi}")
+    for label, (model, ref, n_split) in km_forms.items():
+        check_kmeans_form(model, ref, X, n_split, label)
     labels = pred["prediction"].to_numpy()
     require(labels.shape == (N_MAIN,) and labels.min() >= 0 and labels.max() < K_MAIN,
             "KMeans transform labels")
@@ -1575,6 +1892,12 @@ def main() -> int:
             f"(label noise std {LR_NOISE}), mae {ev.meanAbsoluteError:.6f}")
         require(p.shape == (N_MAIN,) and np.isfinite(p).all(), f"LinReg {label} predictions")
         require(ev.r2 > 0.99, f"LinReg {label} evaluate: r2 {ev.r2}")
+    hi_rel = float(np.linalg.norm(ols1_hi.coefficients - ols1.coefficients)
+                   / np.linalg.norm(ols1.coefficients))
+    log(f"  LinReg OLS on {N_LR_HIGH} rows under high: coefficients vs the f32 fit rel 2-norm "
+        f"diff {hi_rel:.3e} (tol 1e-3, as against f64 above); intercept {ols1_hi.intercept:.6f} (f32 "
+        f"{ols1.intercept:.6f})")
+    require(hi_rel <= 1e-3, f"LinReg OLS under high: coefficients rel diff {hi_rel}")
     # OLS leaves the label noise; the penalized fit, biased, can only leave more
     ols_rmse, en_rmse = ols_ev.rootMeanSquaredError, en_ev.rootMeanSquaredError
     require(abs(ols_rmse - LR_NOISE) <= 0.05 * LR_NOISE, f"LinReg OLS rmse {ols_rmse}")
@@ -1783,6 +2106,50 @@ def main() -> int:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms,
         })
+    # the bf16-split forms: kernel, plain, bound (the bytes, or their part products
+    # at the bf16 tensor-core peak and the rest in f32, whichever is longer)
+    f32_ms = {r["name"]: r["ms"] for r in rows}
+    split_specs = {}
+    for ns, passes in ((1, 1), (2, 3)):
+        split_specs[form_name("lloyd", ns)] = (
+            lambda ns=ns: lloyd_mod.lloyd_step(X, Cm, n, None, ns),
+            lambda ns=ns: lloyd_mod.lloyd_step_plain(X, Cm, n, None, ns),
+            4.0 * (n * d + k * d + k * d + k + 1), passes * (2.0 * n * k * d + 2.0 * n * d),
+            2.0 * n * d)
+        split_specs[form_name("lloyd_weighted", ns)] = (
+            lambda ns=ns: lloyd_mod.lloyd_step(X, Cm, n, w_t, ns),
+            lambda ns=ns: lloyd_mod.lloyd_step_plain(X, Cm, n, w_t, ns),
+            4.0 * (n * d + n + k * d + k * d + k + 1), passes * (2.0 * n * k * d + 2.0 * n * d),
+            3.0 * n * d)
+    split_specs["assign_high"] = (
+        lambda: select_mod.assign(X, Cm, 2), lambda: select_mod.assign_plain(X, Cm, 2),
+        4.0 * (n * d + k * d + n), 3 * 2.0 * n * k * d, 2.0 * n * d)
+    split_specs["xtx_high"] = (
+        lambda: xtwx.xtx(X, n, 2), lambda: xtwx.xtx_plain(X, n, 2),
+        4.0 * (n * d + d * d + d), 3 * (n * d * (d + 1.0) + n * d), 0.0)
+    split_specs["xtxy_high"] = (
+        lambda: xtwx.xtxy(X, y, n, 2), lambda: xtwx.xtxy_plain(X, y, n, 2),
+        4.0 * (n * (d + 1) + d * d + 2 * d + 2), 3 * (n * d * (d + 1.0) + 3.0 * n * d + 2.0 * n),
+        0.0)
+    for name, (kern, plain, nbytes, bf16_ops, f32_ops) in split_specs.items():
+        ms = time_ms(torch, kern)
+        plain_ms = time_ms(torch, plain, 3, 1)
+        t_b = nbytes / PEAK_BYTES
+        t_o = bf16_ops / PEAK_NARROW_OPS["bfloat16"] + f32_ops / PEAK_F32_FLOPS
+        b_ms, b_by = 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+        base = name.rsplit("_", 1)[0]
+        log(f"  {name}: kernel {ms:.4f} ms (the f32 form {f32_ms[base]:.4f} ms)  plain "
+            f"{plain_ms:.4f} ms  library none  bound {b_ms:.4f} ms ({b_by}; the part products "
+            f"alone at the bf16 peak {1e3 * bf16_ops / PEAK_NARROW_OPS['bfloat16']:.4f} ms)")
+        rows.append({
+            "name": name, "route": "cuda", "source": SOURCE[name], "replaces": REPLACES[name],
+            "launches": launches[name], "max_abs_err": errs[name]["max_abs_err"],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+        })
+    log("  split forms' library figure: none. No one PyTorch call computes the two-part bf16 "
+        "split (a bf16 matmul rounds its operands once and its result to bf16), and none a "
+        "fused Lloyd step in any form")
     log(f"  count library figure: cuBLAS addmm of blocks of {COUNT_LIB_BLOCK} queries against "
         f"all items, + q2, compare and sum (one call would build the (n, n) distance matrix, "
         f"{4.0 * N_DB * N_DB / 1e9:.0f} GB at n = {N_DB})")
@@ -1913,7 +2280,7 @@ def main() -> int:
         f"span was {stages['KMeans fit'][1]['lloyd_loop']:.4f} s")
 
     # the forests run last, on rows of their own: free the earlier paths' data
-    del Xh, X, y, x2_main, specs, Xdb, Qk, Qk10, narrow_items
+    del Xh, X, y, x2_main, specs, split_specs, Xdb, Qk, Qk10, narrow_items
     gc.collect()
     torch.cuda.empty_cache()
     rows += phase_forest(torch, run_path, stages, path_counts, launches)

@@ -6,11 +6,14 @@
 #   device            (str,  env SRML_TORCH_DEVICE)            "cuda" (default) or
 #                     "cpu". Entry points run on the card unless the caller asks
 #                     for the CPU here or through an estimator's `device=` keyword.
-#   parity_precision  (str,  env SRML_TORCH_PARITY_PRECISION)  "highest": model-
-#                     attribute products run in full f32 (no TF32, no bf16).
-#   fast_math         (bool, env SRML_TORCH_FAST_MATH)         reduced-precision
-#                     ranking products of KMeans; not implemented yet, a True
-#                     request raises.
+#   parity_precision  (str,  env SRML_TORCH_PARITY_PRECISION)  "highest" (default):
+#                     model-attribute products run in full f32 (no TF32); "high":
+#                     the KMeans (Lloyd, assignment), PCA and LinearRegression
+#                     kernels take the two-part bf16 split (ops/_precision.py), the
+#                     library products stay f32. Another value raises ValueError.
+#   fast_math         (bool, env SRML_TORCH_FAST_MATH)         KMeans only: the Lloyd
+#                     step's products in one bf16 pass; the assignment stays at
+#                     the parity tier. No other estimator reads it.
 #   knn_precision     (str,  env SRML_TORCH_KNN_PRECISION)     the products of exact
 #                     kNN's top-k scan: "float32" (the default, exact), "bfloat16"
 #                     or "int8", which rank an oversampled candidate pool that an

@@ -124,11 +124,8 @@ class _TorchEstimator(_TorchClass, _TorchParams):
             if not isinstance(params, dict):
                 raise TypeError(f"params must be a param map, got {type(params)}")
             return self.copy(params).fit(dataset)
-        from ..ops._precision import check_precision_config
-
         self._validate_param_bounds()
         self._check_supported()
-        check_precision_config()
         device = self.device
         with span("extract"):
             fd = self._pre_process_data(dataset)

@@ -15,32 +15,42 @@
 // and the running argmin closes in registers and shuffles. Centers stage through
 // shared memory in (32 x 32) tiles, so any (k, d) runs. The products are f32 FMA
 // on the CUDA cores, the counterpart of the TPU kernel's full-f32 (HIGHEST)
-// bf16-split passes; no TF32.
+// bf16-split passes; no TF32. Under parity_precision "high" (n_split 2, as the
+// TPU kernel's _assign_n_split gives it) each product is the two-part bf16
+// split, three FMA of exact part products (nearest.cuh, bf16split.cuh): 3.9 ms
+// of FMA at the main shape, near the bytes.
 
 #include "nearest.cuh"
 
+template <int NSPLIT>
 __global__ void __launch_bounds__(NR_THREADS)
 assign_kernel(const float* __restrict__ X, int64_t n, int d,
               const float* __restrict__ C, const float* __restrict__ c2, int k,
               int* __restrict__ labels) {
-  __shared__ NearestSmem sm;
+  __shared__ NearestSmemT<NSPLIT> sm;
   for (int64_t row0 = (int64_t)blockIdx.x * NR_ROWS; row0 < n;
        row0 += (int64_t)gridDim.x * NR_ROWS) {
-    nearest_tile<true>(X, row0, n, d, C, c2, k, sm);
+    nearest_tile<true, NSPLIT>(X, row0, n, d, C, c2, k, sm);
     const int64_t row = row0 + threadIdx.x;
     if (threadIdx.x < NR_ROWS && row < n) labels[row] = sm.best_i[threadIdx.x];
   }
 }
 
-// Launches on `stream`; allocates nothing, does not synchronise. Returns
-// cudaGetLastError() (0 on success).
+// n_split is 3 (f32) or 2 (the bf16 split). Launches on `stream`; allocates
+// nothing, does not synchronise. Returns cudaGetLastError() (0 on success).
 extern "C" int srml_assign(const void* X, long long n, int d, const void* C,
                            const void* c2, int k, void* labels, int n_blocks,
-                           void* stream) {
+                           int n_split, void* stream) {
+  if (n_split != 3 && n_split != 2) return (int)cudaErrorInvalidValue;
   if (n > 0) {
-    assign_kernel<<<n_blocks, NR_THREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)X, (int64_t)n, d, (const float*)C, (const float*)c2, k,
-        (int*)labels);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (n_split == 3) {
+      assign_kernel<3><<<n_blocks, NR_THREADS, 0, s>>>(
+          (const float*)X, (int64_t)n, d, (const float*)C, (const float*)c2, k, (int*)labels);
+    } else {
+      assign_kernel<2><<<n_blocks, NR_THREADS, 0, s>>>(
+          (const float*)X, (int64_t)n, d, (const float*)C, (const float*)c2, k, (int*)labels);
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -7,10 +7,20 @@
 // weights: `w` is null and every row below n_valid weighs 1) and
 // ::_lloyd_kernel (a weightCol: `w` points at the weights and n_valid = n).
 //
+// Forms: NSPLIT 3 (f32, the parity default), 2 (the two-part bf16 split,
+// parity_precision "high") and 1 (one bf16 pass, fast_math), as the TPU
+// kernel's n_split (bf16split.cuh). Both products take the split: the cross
+// terms in nearest_tile, and the update, which adds split(w).split(x) per row,
+// lo_w hi_x + hi_w lo_x + hi_w hi_x at NSPLIT 2 (the one-hot entry carries the
+// weight: unit weights add hi_x + lo_x, or hi_x at NSPLIT 1). The counts, |x|^2
+// and |c|^2 stay f32; the inertia takes the split criterion, as on the TPU.
+//
 // What bounds it on the H100: one step reads X once, 4 n d bytes (8.6 GB at the
 // main path's 8.4M x 256), and does 2 n k d f32 operations for the distances
 // plus 2 n d for the sums; at k = 20 that is 2.6 ms of memory against 1.3 ms of
-// f32 FMA at the published peaks, so it is bound by bytes.
+// f32 FMA at the published peaks, so it is bound by bytes. The NSPLIT 2 form
+// does three exact part products per product on the CUDA cores: 3.9 ms of FMA,
+// still near the bytes (on the tensor cores its products would take 0.1 ms).
 //
 // Design:
 //   * X is read from device memory once per step, as on the TPU: each row tile
@@ -33,13 +43,14 @@
 
 #define SMEM_ACC_MAX_FLOATS 24576  // 96 KiB of dynamic shared memory
 
+template <int NSPLIT>
 __global__ void __launch_bounds__(NR_THREADS)
 lloyd_partial_kernel(const float* __restrict__ X, const float* __restrict__ w,
                      int64_t n_valid, int d, const float* __restrict__ C,
                      const float* __restrict__ c2, int k, int64_t rows_per_block,
                      int smem_acc, float* __restrict__ part) {
   extern __shared__ float acc_smem[];
-  __shared__ NearestSmem sm;
+  __shared__ NearestSmemT<NSPLIT> sm;
   const int tid = threadIdx.x;
   const int64_t kd = (int64_t)k * d;
   const int64_t stride = kd + k + 1;  // sums (k, d), counts (k), inertia
@@ -51,7 +62,7 @@ lloyd_partial_kernel(const float* __restrict__ X, const float* __restrict__ w,
   const int64_t r_end = min(r_begin + rows_per_block, n_valid);
   float inertia = 0.f;  // thread 0's
   for (int64_t row0 = r_begin; row0 < r_end; row0 += NR_ROWS) {
-    nearest_tile<false>(X, row0, r_end, d, C, c2, k, sm);
+    nearest_tile<false, NSPLIT>(X, row0, r_end, d, C, c2, k, sm);
     const int rows = (int)min((int64_t)NR_ROWS, r_end - row0);
     for (int rr = 0; rr < rows; ++rr) {
       const int64_t row = row0 + rr;
@@ -59,7 +70,18 @@ lloyd_partial_kernel(const float* __restrict__ X, const float* __restrict__ w,
       if (wr == 0.f) continue;
       float* dst = acc + (int64_t)sm.best_i[rr] * d;
       const float* src = X + row * d;
-      for (int j = tid; j < d; j += NR_THREADS) dst[j] = fmaf(wr, src[j], dst[j]);
+      float wh, wl;
+      bf16_parts<NSPLIT>(wr, wh, wl);
+      for (int j = tid; j < d; j += NR_THREADS) {
+        float xh, xl;
+        bf16_parts<NSPLIT>(src[j], xh, xl);
+        float a = dst[j];
+        if constexpr (NSPLIT == 2) {
+          a = fmaf(wl, xh, a);
+          a = fmaf(wh, xl, a);
+        }
+        dst[j] = fmaf(wh, xh, a);
+      }
     }
     if (tid == 0) {
       float tile = 0.f;  // two-level sum: per tile, then per block
@@ -89,26 +111,48 @@ __global__ void lloyd_reduce_kernel(const float* __restrict__ part, int n_blocks
   out[e] = s;
 }
 
+template <int NSPLIT>
+static cudaError_t launch_partial(const void* X, const void* w, long long n_valid, int d,
+                                  const void* C, const void* c2, int k,
+                                  long long rows_per_block, int n_blocks, int smem_acc,
+                                  size_t smem, void* part, cudaStream_t s) {
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(lloyd_partial_kernel<NSPLIT>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  lloyd_partial_kernel<NSPLIT><<<n_blocks, NR_THREADS, smem, s>>>(
+      (const float*)X, (const float*)w, (int64_t)n_valid, d, (const float*)C,
+      (const float*)c2, k, (int64_t)rows_per_block, smem_acc, (float*)part);
+  return cudaGetLastError();
+}
+
 // out holds k d + k + 1 floats: sums (k, d), counts (k), inertia. part holds
-// n_blocks times as many. Launches on `stream`; allocates nothing, does not
-// synchronise. Returns cudaGetLastError() (0 on success).
+// n_blocks times as many. n_split is 1, 2 or 3 (see above). Launches on
+// `stream`; allocates nothing, does not synchronise. Returns
+// cudaGetLastError() (0 on success).
 extern "C" int srml_lloyd_step(const void* X, const void* w, long long n_valid,
                                int d, const void* C, const void* c2, int k,
                                long long rows_per_block, int n_blocks, void* part,
-                               void* out, void* stream) {
+                               void* out, int n_split, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int64_t stride = (int64_t)k * d + k + 1;
   const int smem_acc = (stride - 1) <= SMEM_ACC_MAX_FLOATS;
   const size_t smem = smem_acc ? (size_t)(stride - 1) * sizeof(float) : 0;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        lloyd_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+  cudaError_t err;
+  if (n_split == 3) {
+    err = launch_partial<3>(X, w, n_valid, d, C, c2, k, rows_per_block, n_blocks, smem_acc,
+                            smem, part, s);
+  } else if (n_split == 2) {
+    err = launch_partial<2>(X, w, n_valid, d, C, c2, k, rows_per_block, n_blocks, smem_acc,
+                            smem, part, s);
+  } else if (n_split == 1) {
+    err = launch_partial<1>(X, w, n_valid, d, C, c2, k, rows_per_block, n_blocks, smem_acc,
+                            smem, part, s);
+  } else {
+    return (int)cudaErrorInvalidValue;
   }
-  lloyd_partial_kernel<<<n_blocks, NR_THREADS, smem, s>>>(
-      (const float*)X, (const float*)w, (int64_t)n_valid, d, (const float*)C,
-      (const float*)c2, k, (int64_t)rows_per_block, smem_acc, (float*)part);
-  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int threads = 256;
   const int blocks = (int)((stride + threads - 1) / threads);

@@ -12,6 +12,11 @@
 //
 // Rows at or past `n_rows` read as zeros (a select, never a multiply, so what
 // lies past the edge never reaches the arithmetic).
+//
+// The cross terms take NSPLIT (bf16split.cuh): 3 f32 FMA; 1 both operands
+// rounded to bf16 as they are staged; 2 each staged as its hi and lo parts, and
+// each product taken as three FMA of exact part products (lo.hi, hi.lo, hi.hi).
+// The row norms |x|^2 stay f32, from X itself.
 
 #pragma once
 
@@ -19,18 +24,34 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16split.cuh"
+
 #define NR_ROWS 32
 #define NR_K 32
 #define NR_D 32
 #define NR_THREADS 256
 
-struct NearestSmem {
+template <int NSPLIT>
+struct NearestSmemT {
   float xs[NR_ROWS][NR_D + 1];  // +1: no bank conflicts on column reads
-  float cs[NR_K][NR_D + 1];
+  float cs[NR_K][NR_D + 1];     // (the hi parts at NSPLIT 1 and 2)
+  float xs_lo[NSPLIT == 2 ? NR_ROWS : 1][NR_D + 1];  // the lo parts (NSPLIT 2)
+  float cs_lo[NSPLIT == 2 ? NR_K : 1][NR_D + 1];
   float x2[NR_ROWS];      // squared row norms
   float best_v[NR_ROWS];  // criterion of the nearest center
   int best_i[NR_ROWS];    // index of the nearest center
 };
+typedef NearestSmemT<3> NearestSmem;  // the f32 form
+
+// Stage v, or its parts, at (rr, cc) of a tile: xs / xs_lo or cs / cs_lo.
+template <int NSPLIT>
+__device__ __forceinline__ void stage_value(float v, float (*hi)[NR_D + 1],
+                                            float (*lo)[NR_D + 1], int rr, int cc) {
+  float h, l;
+  bf16_parts<NSPLIT>(v, h, l);
+  hi[rr][cc] = h;
+  if constexpr (NSPLIT == 2) lo[rr][cc] = l;
+}
 
 // Stage columns [d0, d0 + NR_D) of the row tile at row0 into sm.xs; rows at or
 // past n_rows and columns past d read as zeros.
@@ -48,15 +69,16 @@ __device__ __forceinline__ void stage_rows(const float* __restrict__ X, int64_t 
 
 // The distance tile's cross terms: acc[q] = x_r . c_(k0 + g + 8q), q = 0..3, for
 // this thread's row r = tid / 8 and centers g = tid % 8 of the chunk at k0, over
-// all d columns, in f32 FMA. Both tiles pass through sm 32 columns at a time;
-// centers at or past k read as zeros. With ROWS_RESIDENT (d <= NR_D) the caller
-// has staged the row tile into sm.xs once (stage_rows) and only the centers are
-// staged here.
-template <bool ROWS_RESIDENT>
+// all d columns, at NSPLIT (see the header). Both tiles pass through sm 32
+// columns at a time; centers at or past k read as zeros. With ROWS_RESIDENT
+// (d <= NR_D, the f32 form) the caller has staged the row tile into sm.xs once
+// (stage_rows) and only the centers are staged here.
+template <bool ROWS_RESIDENT, int NSPLIT = 3>
 __device__ __forceinline__ void cross_chunk(const float* __restrict__ X, int64_t row0,
                                             int64_t n_rows, int d,
                                             const float* __restrict__ C, int k0, int k,
-                                            NearestSmem& sm, float acc[4]) {
+                                            NearestSmemT<NSPLIT>& sm, float acc[4]) {
+  static_assert(!ROWS_RESIDENT || NSPLIT == 3, "resident rows are staged in f32");
   const int tid = threadIdx.x;
   const int r = tid >> 3;
   const int g = tid & 7;
@@ -70,29 +92,43 @@ __device__ __forceinline__ void cross_chunk(const float* __restrict__ X, int64_t
       const int col = d0 + cc;
       if (!ROWS_RESIDENT) {  // NR_K == NR_ROWS: one loop stages both
         const int64_t row = row0 + rr;
-        sm.xs[rr][cc] = (row < n_rows && col < d) ? X[row * d + col] : 0.f;
+        stage_value<NSPLIT>((row < n_rows && col < d) ? X[row * d + col] : 0.f, sm.xs,
+                            sm.xs_lo, rr, cc);
       }
       const int kk = k0 + rr;
-      sm.cs[rr][cc] = (kk < k && col < d) ? C[(int64_t)kk * d + col] : 0.f;
+      stage_value<NSPLIT>((kk < k && col < d) ? C[(int64_t)kk * d + col] : 0.f, sm.cs,
+                          sm.cs_lo, rr, cc);
     }
     __syncthreads();
 #pragma unroll 8
     for (int cc = 0; cc < NR_D; ++cc) {
       const float xv = sm.xs[r][cc];
+      if constexpr (NSPLIT == 2) {
+        const float xl = sm.xs_lo[r][cc];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc[q] = fmaf(xv, sm.cs[g + 8 * q][cc], acc[q]);
+        for (int q = 0; q < 4; ++q) {
+          const float ch = sm.cs[g + 8 * q][cc];
+          acc[q] = fmaf(xl, ch, acc[q]);
+          acc[q] = fmaf(xv, sm.cs_lo[g + 8 * q][cc], acc[q]);
+          acc[q] = fmaf(xv, ch, acc[q]);
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[q] = fmaf(xv, sm.cs[g + 8 * q][cc], acc[q]);
+      }
     }
   }
 }
 
 // FULL = true:  criterion max(x2 - 2 x.c + c2, 0)   (the assignment kernel)
 // FULL = false: criterion c2 - 2 x.c                (the Lloyd kernel; x2 cancels)
-template <bool FULL>
+// x.c at NSPLIT; x2 and c2 in f32.
+template <bool FULL, int NSPLIT>
 __device__ __forceinline__ void nearest_tile(const float* __restrict__ X,
                                              int64_t row0, int64_t n_rows, int d,
                                              const float* __restrict__ C,
                                              const float* __restrict__ c2, int k,
-                                             NearestSmem& sm) {
+                                             NearestSmemT<NSPLIT>& sm) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -118,7 +154,7 @@ __device__ __forceinline__ void nearest_tile(const float* __restrict__ X,
   int bi = 0;
   for (int k0 = 0; k0 < k; k0 += NR_K) {
     float acc[4];
-    cross_chunk<false>(X, row0, n_rows, d, C, k0, k, sm, acc);
+    cross_chunk<false, NSPLIT>(X, row0, n_rows, d, C, k0, k, sm, acc);
     float lv = INFINITY;
     int li = 0x7fffffff;
 #pragma unroll

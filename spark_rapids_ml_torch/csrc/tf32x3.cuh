@@ -32,11 +32,25 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16split.cuh"
+
 // (hi, lo) of one operand value: hi = x rounded to TF32 (ties away from zero,
 // as cvt.rna.tf32.f32 rounds; the low 13 bits zero), lo = x - hi.
 __device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
   hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
   lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// (hi, lo) of one operand value as its two bf16 parts (bf16split.cuh), held in
+// TF32 registers: a bf16 value is exact in TF32 (its low 16 bits are zero), so
+// the tensor cores form each product of two parts exactly, as a bf16 m16n8k16
+// mma would, and mma_3xtf32 computes the two-part bf16 split of a.b (the
+// Gram kernel's n_split 2 form, at the TF32 rate).
+__device__ __forceinline__ void bf16x2_split(float x, uint32_t& hi, uint32_t& lo) {
+  float h, l;
+  bf16_parts<2>(x, h, l);
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(l);
 }
 
 // c += a.b for one m16n8k8 TF32 fragment (layout above).
@@ -56,14 +70,26 @@ struct FragB3 {
   uint32_t hi[2], lo[2];
 };
 
-__device__ __forceinline__ void split_a(const float v[4], FragA3& f) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) tf32_split(v[i], f.hi[i], f.lo[i]);
+// The fragments' parts: TF32 (3xTF32, f32 accuracy) or, with BF16, bf16.
+template <bool BF16 = false>
+__device__ __forceinline__ void split_value(float x, uint32_t& hi, uint32_t& lo) {
+  if constexpr (BF16) {
+    bf16x2_split(x, hi, lo);
+  } else {
+    tf32_split(x, hi, lo);
+  }
 }
 
+template <bool BF16 = false>
+__device__ __forceinline__ void split_a(const float v[4], FragA3& f) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_value<BF16>(v[i], f.hi[i], f.lo[i]);
+}
+
+template <bool BF16 = false>
 __device__ __forceinline__ void split_b(float v0, float v1, FragB3& f) {
-  tf32_split(v0, f.hi[0], f.lo[0]);
-  tf32_split(v1, f.hi[1], f.lo[1]);
+  split_value<BF16>(v0, f.hi[0], f.lo[0]);
+  split_value<BF16>(v1, f.hi[1], f.lo[1]);
 }
 
 // c += a.b in 3xTF32 on the tensor cores: the two small products first, the

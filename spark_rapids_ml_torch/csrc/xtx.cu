@@ -15,6 +15,15 @@
 // 495 TFLOP/s), against 2.6 ms for the 8.6 GB of X at 3.35 TB/s. The label
 // adds 2 n d operations for X^T y and 3 n for its sums, and 4 n bytes.
 //
+// Under parity_precision "high" (n_split 2, BF16 below) the operands are split
+// into their two bf16 parts in place of the TF32 parts, and the same three mma
+// per product form lo.hi + hi.lo + hi.hi exactly (tf32x3.cuh, bf16split.cuh),
+// the TPU kernel's _dot_multipass at n_split 2. Its least time is the same
+// 2.6 ms of bytes (the split products at the bf16 peak, 3 n d (d+1) at 989
+// TFLOP/s, take 1.7 ms); this form runs them at the TF32 rate. The column
+// sums, sum y and sum y^2, entries of the same Gram, come out as split
+// products too, sum (x_hi + x_lo), where the TPU kernel adds x in f32.
+//
 // Design (tf32x3.cuh has the products and the copies):
 //   * The statistics are the Gram of Z = [X | y | 1] (xtx: [X | 1]): X^T y,
 //     colsum X, sum y and sum y^2 are entries of Z^T Z, so they come out of
@@ -108,7 +117,7 @@ __device__ __forceinline__ void load_stripe(float* dst, const float* __restrict_
   }
 }
 
-template <bool HAS_Y>
+template <bool HAS_Y, bool BF16>
 __global__ void __launch_bounds__(THREADS, 1)
 gram_partial_kernel(const float* __restrict__ X, const float* __restrict__ y,
                     int64_t n_valid, int d, int n_tiles, int n_pairs,
@@ -205,15 +214,15 @@ gram_partial_kernel(const float* __restrict__ X, const float* __restrict__ y,
 #pragma unroll
       for (int nf = 0; nf < NF; ++nf) {
         const int n = (wn * NF + nf) * 8 + g;
-        split_b(b0[n], b4[n], fb[nf]);
+        split_b<BF16>(b0[n], b4[n], fb[nf]);
       }
-      if (ext_b) split_b(b0[TILE + g], b4[TILE + g], fe);
+      if (ext_b) split_b<BF16>(b0[TILE + g], b4[TILE + g], fe);
 #pragma unroll
       for (int mf = 0; mf < MF; ++mf) {
         const int m = (wm * MF + mf) * 16 + g;
         const float v[4] = {a0[m], a0[m + 8], a4[m], a4[m + 8]};
         FragA3 fa;
-        split_a(v, fa);
+        split_a<BF16>(v, fa);
 #pragma unroll
         for (int nf = 0; nf < NF; ++nf) mma_3xtf32(p[mf][nf], fa, fb[nf]);
         if (ext_b && mf == wn) mma_3xtf32(p_e, fa, fe);  // wn < MF
@@ -221,7 +230,7 @@ gram_partial_kernel(const float* __restrict__ X, const float* __restrict__ y,
       if (ext_ab && warp == 0) {  // rows of A = the extra columns (8 of the 16)
         const float v[4] = {a0[TILE + g], 0.f, a4[TILE + g], 0.f};
         FragA3 fa;
-        split_a(v, fa);
+        split_a<BF16>(v, fa);
         mma_3xtf32(p_ee, fa, fe);
       }
     }
@@ -307,7 +316,7 @@ __global__ void xtx_reduce_kernel(const float* __restrict__ s2_part,
   }
 }
 
-template <bool HAS_Y>
+template <bool HAS_Y, bool BF16>
 static int launch(const void* X, const void* y, long long n_valid, int d,
                   long long rows_per_chunk, int n_chunks, void* s2_part, void* s1_part,
                   void* xty_part, void* ys_part, void* s2, void* s1, void* xty, void* ys,
@@ -317,11 +326,12 @@ static int launch(const void* X, const void* y, long long n_valid, int d,
   const int n_tiles = (d + TILE - 1) / TILE;
   const int n_pairs = n_tiles * (n_tiles + 1) / 2;
   if ((long long)n_pairs * n_chunks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      gram_partial_kernel<HAS_Y>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  cudaError_t err = cudaFuncSetAttribute(gram_partial_kernel<HAS_Y, BF16>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   const bool vec16 = d % 4 == 0 && (uintptr_t)X % 16 == 0;
-  gram_partial_kernel<HAS_Y><<<n_pairs * n_chunks, THREADS, SMEM_BYTES, s>>>(
+  gram_partial_kernel<HAS_Y, BF16><<<n_pairs * n_chunks, THREADS, SMEM_BYTES, s>>>(
       (const float*)X, (const float*)y, (int64_t)n_valid, d, n_tiles, n_pairs,
       (int64_t)rows_per_chunk, vec16, (float*)s2_part, (float*)s1_part, (float*)xty_part,
       (float*)ys_part);
@@ -336,14 +346,32 @@ static int launch(const void* X, const void* y, long long n_valid, int d,
   return (int)cudaGetLastError();
 }
 
-// s2_part holds n_chunks * d * d floats, s1_part n_chunks * d. Launches on
-// `stream`; allocates nothing, does not synchronise. Returns cudaGetLastError()
-// (0 on success).
+// n_split 3 (3xTF32, f32 accuracy) or 2 (the two-part bf16 split)
+template <bool HAS_Y>
+static int launch_split(int n_split, const void* X, const void* y, long long n_valid, int d,
+                        long long rows_per_chunk, int n_chunks, void* s2_part,
+                        void* s1_part, void* xty_part, void* ys_part, void* s2, void* s1,
+                        void* xty, void* ys, void* stream) {
+  if (n_split == 3) {
+    return launch<HAS_Y, false>(X, y, n_valid, d, rows_per_chunk, n_chunks, s2_part,
+                                s1_part, xty_part, ys_part, s2, s1, xty, ys, stream);
+  }
+  if (n_split == 2) {
+    return launch<HAS_Y, true>(X, y, n_valid, d, rows_per_chunk, n_chunks, s2_part,
+                               s1_part, xty_part, ys_part, s2, s1, xty, ys, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// s2_part holds n_chunks * d * d floats, s1_part n_chunks * d; n_split 3 or 2.
+// Launches on `stream`; allocates nothing, does not synchronise. Returns
+// cudaGetLastError() (0 on success).
 extern "C" int srml_xtx(const void* X, long long n_valid, int d,
                         long long rows_per_chunk, int n_chunks, void* s2_part,
-                        void* s1_part, void* s2, void* s1, void* stream) {
-  return launch<false>(X, nullptr, n_valid, d, rows_per_chunk, n_chunks, s2_part,
-                       s1_part, nullptr, nullptr, s2, s1, nullptr, nullptr, stream);
+                        void* s1_part, void* s2, void* s1, int n_split, void* stream) {
+  return launch_split<false>(n_split, X, nullptr, n_valid, d, rows_per_chunk, n_chunks,
+                             s2_part, s1_part, nullptr, nullptr, s2, s1, nullptr, nullptr,
+                             stream);
 }
 
 // As srml_xtx, with the label y (n_valid or more floats): xty_part holds
@@ -352,7 +380,7 @@ extern "C" int srml_xtx(const void* X, long long n_valid, int d,
 extern "C" int srml_xtxy(const void* X, const void* y, long long n_valid, int d,
                          long long rows_per_chunk, int n_chunks, void* s2_part,
                          void* s1_part, void* xty_part, void* ys_part, void* s2,
-                         void* s1, void* xty, void* ys, void* stream) {
-  return launch<true>(X, y, n_valid, d, rows_per_chunk, n_chunks, s2_part, s1_part,
-                      xty_part, ys_part, s2, s1, xty, ys, stream);
+                         void* s1, void* xty, void* ys, int n_split, void* stream) {
+  return launch_split<true>(n_split, X, y, n_valid, d, rows_per_chunk, n_chunks, s2_part,
+                            s1_part, xty_part, ys_part, s2, s1, xty, ys, stream);
 }

@@ -126,11 +126,8 @@ class NearestNeighbors(_NearestNeighborsClass, _TorchEstimator, _NNParams):
     def fit(self, dataset: Any, params: Optional[ParamMap] = None) -> "NearestNeighborsModel":
         if params is not None:
             return self.copy(params).fit(dataset)
-        from ..ops._precision import check_precision_config
-
         self._validate_param_bounds()
         self._check_supported()
-        check_precision_config()
         device = self.device
         dataset = self._ensureIdCol(dataset)
         with span("extract"):

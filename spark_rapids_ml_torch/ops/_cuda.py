@@ -13,7 +13,8 @@
 #   count.cu  srml_count                     (ops/count.py)
 #   topk.cu   srml_topk                      (ops/topk.py)
 #   hist.cu   srml_node_bin_hist, srml_segment_hist  (ops/histogram.py)
-# Every source may include the headers beside it (nearest.cuh, tf32x3.cuh);
+# Every source may include the headers beside it (nearest.cuh, tf32x3.cuh,
+# bf16split.cuh);
 # each library's hash covers them all.
 #
 # Every pointer and the stream cross as ctypes.c_void_p; each C entry point
@@ -48,10 +49,11 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 # entry point -> (source, C symbol, C signature)
 ENTRIES = {
-    "xtx": ("xtx", "srml_xtx", [_P, _L, _I, _L, _I, _P, _P, _P, _P, _P]),
-    "xtxy": ("xtx", "srml_xtxy", [_P, _P, _L, _I, _L, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P]),
-    "lloyd": ("lloyd", "srml_lloyd_step", [_P, _P, _L, _I, _P, _P, _I, _L, _I, _P, _P, _P]),
-    "assign": ("assign", "srml_assign", [_P, _L, _I, _P, _P, _I, _P, _I, _P]),
+    "xtx": ("xtx", "srml_xtx", [_P, _L, _I, _L, _I, _P, _P, _P, _P, _I, _P]),
+    "xtxy": ("xtx", "srml_xtxy",
+             [_P, _P, _L, _I, _L, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P]),
+    "lloyd": ("lloyd", "srml_lloyd_step", [_P, _P, _L, _I, _P, _P, _I, _L, _I, _P, _P, _I, _P]),
+    "assign": ("assign", "srml_assign", [_P, _L, _I, _P, _P, _I, _P, _I, _I, _P]),
     "count": ("count", "srml_count", [_P, _P, _L, _I, _P, _P, _I, _F, _P, _I, _P]),
     "topk": ("topk", "srml_topk",
              [_P, _P, _L, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P]),
@@ -130,6 +132,11 @@ def entry(name: str) -> ctypes._CFuncPtr:
 def stream_of(t: torch.Tensor) -> int:
     """The current CUDA stream of `t`'s device, as the integer the C side takes."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def count_launch(fn, attr: str) -> None:
+    """Add one to the launch counter `attr` of the wrapper `fn`."""
+    setattr(fn, attr, getattr(fn, attr) + 1)
 
 
 def check(rc: int, what: str) -> None:

@@ -9,6 +9,12 @@
 # (ops/select.py). The JAX package's TPU gates (SRML_TPU_PALLAS_KMEANS, k >= 128)
 # do not apply here. Empty clusters keep their previous center.
 #
+# Precision, as the JAX package's fused path picks it (its ops/kmeans.py
+# kmeans_fit): the Lloyd step runs at n_split 1 under `fast_math`, else at the
+# parity tier's (2 under parity_precision="high", else the f32 form); the
+# assignment at the parity tier's, `fast_math` or not. The oversampling
+# distances and the reported inertia are library products, full f32.
+#
 # Initialization: "random" picks k real rows; "k-means||" runs `initSteps`
 # rounds of distance-weighted oversampling, 2k rows per round by the Gumbel-top-k
 # trick on log(d²) (sampling without replacement ∝ d²), then weighted k-means++
@@ -26,8 +32,10 @@ from typing import Dict
 import numpy as np
 import torch
 
-from .lloyd import lloyd_fit
+from .. import config as _config
 from ..utils import span
+from ._precision import parity_n_split
+from .lloyd import lloyd_fit
 from .select import assign, sq_dists
 
 
@@ -40,9 +48,10 @@ def _check_metric(metric: str) -> None:
 
 
 def kmeans_predict(X: torch.Tensor, centers: torch.Tensor, metric: str = "euclidean") -> torch.Tensor:
-    """Nearest-center assignment (int32), through the fused assignment kernel."""
+    """Nearest-center assignment (int32), through the fused assignment kernel
+    at the parity tier's n_split."""
     _check_metric(metric)
-    return assign(X, centers)
+    return assign(X, centers, parity_n_split())
 
 
 def kmeans_inertia(X: torch.Tensor, w: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
@@ -220,8 +229,14 @@ def kmeans_fit(
     init_centers = torch.as_tensor(
         kmeans_init(X, w, k, init, init_steps, seed), device=X.device
     )
+    # The port always takes the fused kernel, the counterpart of the JAX
+    # package's lloyd_fit_pallas, and so its n_split. The TPU gates that kernel
+    # at k >= 128 (LLOYD_FUSED_MIN_K); below the gate the JAX package's XLA
+    # lloyd_fit runs on the TPU, whose update stays at parity precision under
+    # fast_math. The port does not copy the gate.
+    n_split = 1 if bool(_config.get("fast_math")) else parity_n_split()
     centers, inertia, n_iter = lloyd_fit(
-        X, w, init_centers.contiguous(), float(tol), int(max_iter), unit_weight
+        X, w, init_centers.contiguous(), float(tol), int(max_iter), unit_weight, n_split
     )
     return {
         "cluster_centers": centers.cpu().numpy(),

@@ -12,7 +12,9 @@
 #
 # Routing: unit-weight f32 input takes the fused normal-equation kernel
 # (ops/xtwx.py::normal_eq_prefix_mask: csrc/xtx.cu on the card, its plain
-# version on the CPU); weighted or f64 input takes linreg_sufficient_stats.
+# version on the CPU), at the parity tier's n_split (the two-part bf16 split
+# under parity_precision="high"); weighted or f64 input takes
+# linreg_sufficient_stats, library products, full f32.
 #
 # FISTA runs on the host loop: reading the stopping quantity `delta` costs one
 # scalar device-to-host sync per iteration, which keeps the JAX package's rule
@@ -28,7 +30,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from ..utils import span
-from ._precision import pdot
+from ._precision import parity_n_split, pdot
 from .linalg import power_iteration_lmax
 from .xtwx import normal_eq_prefix_mask
 
@@ -123,7 +125,9 @@ def linreg_fit(
     Returns one attribute dict per model."""
     with span("normal_equations"):
         if unit_weight and X.dtype == torch.float32:
-            A, b, xbar, ybar, n, _yty = normal_eq_prefix_mask(X, y, X.shape[0])
+            A, b, xbar, ybar, n, _yty = normal_eq_prefix_mask(
+                X, y, X.shape[0], parity_n_split()
+            )
         else:
             A, b, xbar, ybar, n = linreg_sufficient_stats(X, y, w)
     with span("solve"):  # and the attributes' copies to the host

@@ -9,6 +9,13 @@
 # weights (`w=None`) every row below n_valid weighs 1, the unit-weight form; with
 # weights n_valid is n, the weighted form.
 #
+# Each form takes an `n_split` (ops/_precision.py): 3 full f32 (the parity
+# default), 2 the two-part bf16 split (parity_precision="high"), 1 one bf16 pass
+# (`fast_math`). As in the TPU kernel, both products take the split: the cross
+# term x·c and the update onehotᵀ·x, whose one-hot carries the row's weight (so
+# the update adds split(w)·split(x), and split(x) for unit weights); the counts,
+# |x|² and |c|² stay unrounded f32, and the inertia takes the split cross term.
+#
 # `lloyd_step` launches the CUDA kernel csrc/lloyd.cu for tensors on the card and
 # runs `lloyd_step_plain`, the same function in plain PyTorch, for tensors on the
 # CPU. The kernel's design and its bound on the H100 are in the source's header.
@@ -22,11 +29,12 @@ import torch
 
 from ..utils import span
 from . import _cuda
-from ._precision import pdot
+from ._precision import F32, dot_multipass
 
 
 def lloyd_step_plain(
-    X: torch.Tensor, centers: torch.Tensor, n_valid: int, w: Optional[torch.Tensor] = None
+    X: torch.Tensor, centers: torch.Tensor, n_valid: int, w: Optional[torch.Tensor] = None,
+    n_split: int = F32,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel: (sums (k, d), counts (k,), inertia)."""
     n = X.shape[0]
@@ -36,22 +44,31 @@ def lloyd_step_plain(
     Xm = torch.where(valid[:, None], X, zero)
     wv = valid.to(X.dtype) if w is None else torch.where(valid, w, zero)
     c2 = torch.sum(centers * centers, dim=1)
-    part = c2[None, :] - 2.0 * pdot(Xm, centers.T)
+    part = c2[None, :] - 2.0 * dot_multipass(Xm, centers.T, n_split)
     assign = torch.argmin(part, dim=1)  # first index of a tie
     min_part = torch.gather(part, 1, assign[:, None])[:, 0]
     onehot = torch.nn.functional.one_hot(assign, k).to(X.dtype) * wv[:, None]
-    sums = pdot(onehot.T, Xm)
+    sums = dot_multipass(onehot.T, Xm, n_split)
     counts = torch.sum(onehot, dim=0)
     x2 = torch.sum(Xm * Xm, dim=1)
     inertia = torch.sum(wv * torch.clamp(x2 + min_part, min=0.0))
     return sums, counts, inertia
 
 
+# the launch counter of each form: (weighted, n_split) -> attribute of lloyd_step
+COUNTERS = {
+    (False, F32): "launches", (False, 2): "launches_high", (False, 1): "launches_bf16",
+    (True, F32): "weighted_launches", (True, 2): "weighted_launches_high",
+    (True, 1): "weighted_launches_bf16",
+}
+
+
 def lloyd_step(
-    X: torch.Tensor, centers: torch.Tensor, n_valid: int, w: Optional[torch.Tensor] = None
+    X: torch.Tensor, centers: torch.Tensor, n_valid: int, w: Optional[torch.Tensor] = None,
+    n_split: int = F32,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One fused Lloyd pass over X (n, d) f32 against centers (k, d) f32:
-    (sums (k, d), counts (k,), inertia 0-d)."""
+    """One fused Lloyd pass over X (n, d) f32 against centers (k, d) f32 with
+    products at n_split (1, 2 or 3): (sums (k, d), counts (k,), inertia 0-d)."""
     n, d = X.shape
     k = centers.shape[0]
     _cuda.require(X, "X", (n, d))
@@ -60,6 +77,8 @@ def lloyd_step(
         raise ValueError("a Lloyd step needs at least one center")
     if not 0 <= n_valid <= n:
         raise ValueError(f"n_valid={n_valid} must lie in [0, {n}]")
+    if n_split not in (1, 2, F32):
+        raise ValueError(f"the Lloyd kernel takes n_split 1, 2 or 3, got {n_split}")
     tensors = (X, centers)
     if w is not None:
         _cuda.require(w, "w", (n,))
@@ -67,7 +86,7 @@ def lloyd_step(
             raise ValueError("the weighted form takes n_valid = n")
         tensors += (w,)
     if _cuda.device_kind(*tensors) == "cpu":
-        return lloyd_step_plain(X, centers, n_valid, w)
+        return lloyd_step_plain(X, centers, n_valid, w, n_split)
     fn = _cuda.entry("lloyd")
     c2 = torch.sum(centers * centers, dim=1)
     n_blocks = max(1, min(-(-n_valid // _cuda.NR_ROWS), 4 * _cuda.sm_count(X)))
@@ -79,18 +98,15 @@ def lloyd_step(
     _cuda.check(
         fn(X.data_ptr(), None if w is None else w.data_ptr(), n_valid, d,
            centers.data_ptr(), c2.data_ptr(), k, rows, n_blocks, part.data_ptr(),
-           out.data_ptr(), _cuda.stream_of(X)),
+           out.data_ptr(), n_split, _cuda.stream_of(X)),
         "lloyd kernel",
     )
-    if w is None:
-        lloyd_step.launches += 1
-    else:
-        lloyd_step.weighted_launches += 1
+    _cuda.count_launch(lloyd_step, COUNTERS[(w is not None, n_split)])
     return out[: k * d].view(k, d), out[k * d : k * d + k], out[k * d + k]
 
 
-lloyd_step.launches = 0  # unit-weight form
-lloyd_step.weighted_launches = 0  # weighted form
+for _attr in COUNTERS.values():
+    setattr(lloyd_step, _attr, 0)
 
 
 def lloyd_fit(
@@ -100,10 +116,12 @@ def lloyd_fit(
     tol: float,
     max_iter: int,
     unit_weight: bool,
+    n_split: int = F32,
 ) -> Tuple[torch.Tensor, float, int]:
     """Lloyd iterations until the largest center movement² <= tol² or max_iter
-    (the rule of lloyd_fit_pallas). Returns (centers, inertia, n_iter), the
-    inertia recomputed against the final centers at parity precision.
+    (the rule of lloyd_fit_pallas), each step's products at n_split. Returns
+    (centers, inertia, n_iter), the inertia recomputed against the final
+    centers in full f32, whatever n_split the steps took.
 
     The loop runs on the host: reading `movement² > tol²` costs one scalar
     device-to-host sync per iteration, which keeps the rule exact."""
@@ -116,7 +134,7 @@ def lloyd_fit(
     moving = True
     with span("lloyd_loop"):
         while n_iter < max_iter and moving:
-            sums, counts, _ = lloyd_step(X, centers, n, None if unit_weight else w)
+            sums, counts, _ = lloyd_step(X, centers, n, None if unit_weight else w, n_split)
             new_centers = torch.where(
                 counts[:, None] > 0, sums / torch.clamp(counts, min=1.0)[:, None], centers
             )

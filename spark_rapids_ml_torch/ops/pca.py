@@ -8,7 +8,9 @@
 # Routing: unit-weight f32 input takes the fused Gram kernel (ops/xtwx.py), on
 # the card and, through its plain version, on the CPU; weighted or f64 input
 # takes weighted_covariance (ops/linalg.py). The JAX package's TPU gates (the
-# 512-column VMEM cap and the TPU platform check) do not apply here.
+# 512-column VMEM cap and the TPU platform check) do not apply here. The Gram
+# kernel runs at the parity tier's n_split (the two-part bf16 split under
+# parity_precision="high"); weighted_covariance is a library product, full f32.
 #
 # Parity notes:
 #   * component signs canonicalized so each component's max-|.| element is positive
@@ -24,7 +26,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ._precision import pdot
+from ._precision import parity_n_split, pdot
 from .linalg import weighted_covariance
 from .xtwx import covariance_prefix_mask
 
@@ -33,7 +35,7 @@ def covariance_for_fit(X: torch.Tensor, w: torch.Tensor, unit_weight: bool):
     """(cov, mean, wsum) of X's rows weighted by w, with the unbiased (Σw − 1)
     denominator."""
     if unit_weight and X.dtype == torch.float32:
-        return covariance_prefix_mask(X, X.shape[0])
+        return covariance_prefix_mask(X, X.shape[0], parity_n_split())
     return weighted_covariance(X, w)
 
 

@@ -1,5 +1,7 @@
 """PyTorch port, KMeans end to end on the CPU (spark_rapids_ml_torch.clustering)
-against the JAX package's estimator on the same numpy input.
+against the JAX package's estimator on the same numpy input; and the precision
+keys: every estimator of the port fits under fast_math and under
+parity_precision="high", and KMeans's bf16-split fits keep the f32 fit.
 
 The k-means|| Gumbel noise comes from different generators in the two
 packages, so centers are matched up to a permutation (within 1e-4) and the
@@ -62,7 +64,8 @@ def test_weight_col_routes_the_weighted_step(monkeypatch):
     df = pd.DataFrame({"features": list(X), "w": w})
     seen = []
     real = lloyd.lloyd_step
-    monkeypatch.setattr(lloyd, "lloyd_step", lambda X, C, n, w=None: seen.append(w is not None) or real(X, C, n, w))
+    monkeypatch.setattr(lloyd, "lloyd_step", lambda X, C, n, w=None, n_split=3:
+                        seen.append(w is not None) or real(X, C, n, w, n_split))
     got = KMeans(k=4, seed=1, weightCol="w", device="cpu").fit(df)
     assert seen and all(seen)
     want = jax_clustering.KMeans(k=4, seed=1, weightCol="w").fit(df)
@@ -74,7 +77,8 @@ def test_weight_col_routes_the_weighted_step(monkeypatch):
 def test_unit_weight_routes_the_unit_weight_step(monkeypatch):
     seen = []
     real = lloyd.lloyd_step
-    monkeypatch.setattr(lloyd, "lloyd_step", lambda X, C, n, w=None: seen.append(w is None) or real(X, C, n, w))
+    monkeypatch.setattr(lloyd, "lloyd_step", lambda X, C, n, w=None, n_split=3:
+                        seen.append(w is None) or real(X, C, n, w, n_split))
     model = KMeans(k=3, seed=2, device="cpu").fit(_blobs(n=500, k=3))
     assert seen and all(seen) and len(seen) == model.summary.numIter
 
@@ -94,15 +98,120 @@ def test_cosine_raises_not_implemented():
         KMeans(k=2, distanceMeasure="cosine", device="cpu").fit(_blobs(n=100))
 
 
-def test_fast_math_raises_not_implemented():
+def _estimator_fits():
+    """name -> (fit and transform at a small size on the CPU, returning arrays;
+    whether the fit reads no precision key, so its output is bit-equal under
+    either)."""
+    import spark_rapids_ml_torch.classification as torch_classification
+    import spark_rapids_ml_torch.knn as torch_knn
+    import spark_rapids_ml_torch.regression as torch_regression
+    from spark_rapids_ml_torch.clustering import DBSCAN
+    from spark_rapids_ml_torch.feature import PCA
+
+    X = _blobs(n=600, d=5, k=3, seed=11)
+    df = pd.DataFrame({"features": list(X), "label": X @ np.arange(1.0, 6.0) + 1.0,
+                       "id": np.arange(600)})
+    cf = pd.DataFrame({"features": list(X), "label": (X[:, 0] > X[:, 0].mean()) * 1.0})
+
+    def knn():
+        nn = torch_knn.NearestNeighbors(k=4, inputCol="features", idCol="id", device="cpu").fit(df)
+        out = nn.kneighbors(df.iloc[:20])[2]
+        return np.stack(out["indices"].to_numpy()), np.stack(out["distances"].to_numpy())
+
+    return {
+        "PCA": (lambda: (PCA(k=2, inputCol="features", device="cpu").fit(X).explained_variance_,),
+                False),
+        "KMeans": (lambda: (KMeans(k=3, seed=1, device="cpu").fit(X).cluster_centers_,), False),
+        "LinearRegression": (lambda: (torch_regression.LinearRegression(device="cpu").fit(df)
+                                      .coefficients,), False),
+        "DBSCAN": (lambda: (DBSCAN(eps=3.0, min_samples=5, device="cpu").fit(X).transform(X)
+                            ["prediction"].to_numpy(),), True),
+        "NearestNeighbors": (knn, True),
+        "RandomForestClassifier": (lambda: (np.stack(torch_classification.RandomForestClassifier(
+            numTrees=3, maxDepth=3, seed=2, device="cpu").fit(cf).transform(cf)["probability"]
+            .to_numpy()),), True),
+        "RandomForestRegressor": (lambda: (torch_regression.RandomForestRegressor(
+            numTrees=3, maxDepth=3, seed=2, device="cpu").fit(df).transform(df)["prediction"]
+            .to_numpy(),), True),
+    }
+
+
+ESTIMATORS = ["PCA", "KMeans", "LinearRegression", "DBSCAN", "NearestNeighbors",
+              "RandomForestClassifier", "RandomForestRegressor"]
+
+
+@pytest.mark.parametrize("key, value", [("fast_math", True), ("parity_precision", "high")])
+@pytest.mark.parametrize("name", ESTIMATORS)
+def test_every_estimator_fits_under_each_precision_key(name, key, value):
+    """fast_math is read by KMeans alone and parity_precision by the KMeans,
+    PCA and LinearRegression kernels, as in the JAX package: every estimator
+    fits under either, and DBSCAN, kNN and the forests give the same bits as
+    under the defaults."""
     from spark_rapids_ml_torch import config
 
-    config.set("fast_math", True)
+    fit, unaffected = _estimator_fits()[name]
+    default = fit()
+    config.set(key, value)
     try:
-        with pytest.raises(NotImplementedError):
-            KMeans(k=2, device="cpu").fit(_blobs(n=100))
+        got = fit()
     finally:
-        config.unset("fast_math")
+        config.unset(key)
+    assert all(np.isfinite(g).all() for g in got)
+    if unaffected:
+        assert all(np.array_equal(g, d) for g, d in zip(got, default))
+
+
+@pytest.mark.parametrize("name", ["PCA", "KMeans", "LinearRegression"])
+def test_an_unknown_parity_precision_raises_value_error(name):
+    from spark_rapids_ml_torch import config
+
+    fit, _ = _estimator_fits()[name]
+    config.set("parity_precision", "medium")
+    try:
+        with pytest.raises(ValueError, match="parity_precision must be 'highest' or 'high'"):
+            fit()
+    finally:
+        config.unset("parity_precision")
+
+
+@pytest.mark.parametrize("key, value, n_split", [("fast_math", True, 1),
+                                                 ("parity_precision", "high", 2)])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_kmeans_split_fit_keeps_the_f32_fit(key, value, n_split, weighted, monkeypatch):
+    """Well-separated blobs: under fast_math (the Lloyd step at n_split 1, the
+    assignment at parity) and under "high" (both at n_split 2) the fit has the
+    f32 fit's n_iter and cluster sizes, and centers within 2^-8 (n_split 1:
+    means of bf16-rounded values) or 2^-14 (n_split 2) of max |center|."""
+    from spark_rapids_ml_torch import config
+    from spark_rapids_ml_torch.ops import select
+
+    X = _blobs(n=3000, d=6, k=5, seed=17)
+    data = X
+    kwargs = {}
+    if weighted:
+        w = np.random.default_rng(3).uniform(0.5, 2.0, len(X)).astype(np.float32)
+        data = pd.DataFrame({"features": list(X), "w": w})
+        kwargs = {"weightCol": "w"}
+    want = KMeans(k=5, seed=1, device="cpu", **kwargs).fit(data)
+    steps, assigns = [], []
+    real_step, real_assign = lloyd.lloyd_step, select.assign
+    monkeypatch.setattr(lloyd, "lloyd_step", lambda X, C, n, w=None, n_split=3:
+                        steps.append(n_split) or real_step(X, C, n, w, n_split))
+    monkeypatch.setattr(torch_kmeans, "assign", lambda X, C, n_split=3:
+                        assigns.append(n_split) or real_assign(X, C, n_split))
+    config.set(key, value)
+    try:
+        got = KMeans(k=5, seed=1, device="cpu", **kwargs).fit(data)
+    finally:
+        config.unset(key)
+    assert set(steps) == {n_split} and len(steps) == got.summary.numIter
+    assert set(assigns) == {2 if n_split == 2 else 3}
+    assert got.summary.numIter == want.summary.numIter
+    perm = _perm(got.cluster_centers_, want.cluster_centers_)
+    assert got.summary.clusterSizes == [want.summary.clusterSizes[p] for p in perm]
+    tol = {1: 2.0**-8, 2: 2.0**-14}[n_split] * np.abs(want.cluster_centers_).max()
+    np.testing.assert_allclose(got.cluster_centers_, want.cluster_centers_[perm], atol=tol)
+    assert got.inertia_ == pytest.approx(want.inertia_, rel=1e-4)
 
 
 def test_unsupported_param_raises_at_fit():

@@ -1,10 +1,17 @@
 """PyTorch port, fused Lloyd step (spark_rapids_ml_torch/ops/lloyd.py): its plain
 version, which the CPU wrapper runs, against the JAX package's Pallas kernels in
 interpret mode at parity precision (ops/pallas_kmeans.py), and the port's
-Lloyd loop against lloyd_fit_pallas, on the same numpy inputs.
+Lloyd loop against lloyd_fit_pallas, on the same numpy inputs; in its f32 form
+(n_split 3, HIGHEST) and its bf16-split forms: n_split 2 against the kernels at
+HIGH, and n_split 1, whose one bf16 pass the interpreter does not round
+(it computes DEFAULT in f32 on the CPU), against a reference built here from
+the JAX package's own `_split_bf16` and `_dot_multipass`.
 
 Tolerances: counts equal; sums rtol 1e-5 with atol 1e-5·max|sums| and inertia
-rtol 1e-5, for f32 sums taken in a different order; fitted centers within 1e-5."""
+rtol 1e-5, for f32 sums taken in a different order; fitted centers within 1e-5.
+`dot_multipass` against `_dot_multipass`: within SPLIT_TOL = 2^-22 of Σ|a||b|
+per entry (the same exact part products summed in another order), and more
+than 10 SPLIT_TOL from the f32 product somewhere (the split is computed)."""
 
 import jax
 import jax.numpy as jnp
@@ -13,13 +20,20 @@ import pytest
 import torch
 
 from spark_rapids_ml_tpu.ops.pallas_kmeans import (
+    _dot_multipass,
+    _split_bf16,
     lloyd_fit_pallas,
     lloyd_step_pallas,
     lloyd_step_pallas_masked,
 )
 from spark_rapids_ml_torch.ops import lloyd
+from spark_rapids_ml_torch.ops._precision import dot_multipass
 
 HIGHEST = jax.lax.Precision.HIGHEST
+HIGH = jax.lax.Precision.HIGH
+PRECISION = {3: HIGHEST, 2: HIGH}
+SPLIT_TOL = 2.0**-22
+ROWS_DIMS = (((1,), (1,)), ((), ()))  # (n, d) x (k, d) -> (n, k)
 
 
 def _blobs(n=600, d=8, k=4, seed=0):
@@ -36,6 +50,22 @@ def _check_step(got, want):
     np.testing.assert_array_equal(c_t.numpy(), c_j)
     np.testing.assert_allclose(s_t.numpy(), s_j, rtol=1e-5, atol=1e-5 * np.abs(s_j).max())
     assert float(i_t) == pytest.approx(float(i_j), rel=1e-5)
+
+
+def _flip_data(n, d, p_count):
+    """Rows and centers on which the bf16-split forms and f32 choose different
+    centers (chip_smoke.py::flip_data): center 0 the origin, center 1 + p only
+    column j_p at 2^e (2 + 2^-8); row i only column j_p, p = i mod P, at
+    2^e (1 + 2^-9 + 2^-18). The split forms put every row in center 0, f32 in
+    its center 1 + p."""
+    cols = np.arange(p_count) * d // p_count
+    scale = 2.0 ** np.array([-3.0, 0.0, 4.0])[np.arange(p_count) % 3]
+    p = np.arange(n) % p_count
+    X = np.zeros((n, d), np.float32)
+    X[np.arange(n), cols[p]] = scale[p] * (1.0 + 2.0**-9 + 2.0**-18)
+    C = np.zeros((p_count + 1, d), np.float32)
+    C[1 + np.arange(p_count), cols] = scale * (2.0 + 2.0**-8)
+    return X, C
 
 
 @pytest.mark.parametrize("n, n_valid, d, k", [(600, 530, 8, 4), (777, 777, 3, 1), (513, 500, 130, 20)])
@@ -60,19 +90,128 @@ def test_weighted_step_matches_weighted_pallas(n, d, k):
     _check_step(got, want)
 
 
+@pytest.mark.parametrize("n, n_valid, d, k", [(600, 530, 8, 4), (777, 777, 3, 1), (513, 500, 130, 20)])
+def test_unit_weight_high_step_matches_masked_pallas_at_high(n, n_valid, d, k):
+    X, init = _blobs(n, d, k, seed=d)
+    got = lloyd.lloyd_step(torch.from_numpy(X), torch.from_numpy(init), n_valid, n_split=2)
+    want = lloyd_step_pallas_masked(
+        jnp.asarray(X), n_valid, jnp.asarray(init), interpret=True, precision=HIGH
+    )
+    _check_step(got, want)
+
+
+@pytest.mark.parametrize("n, d, k", [(600, 8, 4), (513, 130, 20)])
+def test_weighted_high_step_matches_weighted_pallas_at_high(n, d, k):
+    X, init = _blobs(n, d, k, seed=d + 1)
+    w = np.random.default_rng(3).integers(0, 3, n).astype(np.float32)
+    got = lloyd.lloyd_step(torch.from_numpy(X), torch.from_numpy(init), n, torch.from_numpy(w), 2)
+    want = lloyd_step_pallas(
+        jnp.asarray(X), jnp.asarray(w), jnp.asarray(init), interpret=True, precision=HIGH
+    )
+    _check_step(got, want)
+
+
+@pytest.mark.parametrize("n_split", [2, 1])
+def test_dot_multipass_matches_the_jax_split(n_split):
+    """The port's split product against the JAX package's: at n_split 2 its
+    `_dot_multipass`; at 1 `_dot_multipass` of `_split_bf16(·, 1)`'s parts,
+    the bf16-rounded operands the MXU multiplies."""
+    rng = np.random.default_rng(n_split)
+    a = rng.normal(0, 3, (1000, 64)).astype(np.float32)
+    b = rng.normal(0, 3, (8, 64)).astype(np.float32)
+    ja, jb = jnp.asarray(a), jnp.asarray(b)
+    if n_split == 1:
+        ja, jb = _split_bf16(ja, 1)[0], _split_bf16(jb, 1)[0]
+    want = np.asarray(_dot_multipass(ja, jb, ROWS_DIMS, n_split), np.float64)
+    got = dot_multipass(torch.from_numpy(a), torch.from_numpy(b).T, n_split).double().numpy()
+    f32 = (torch.from_numpy(a) @ torch.from_numpy(b).T).double().numpy()
+    mag = np.abs(a).astype(np.float64) @ np.abs(b).T.astype(np.float64)
+    assert np.max(np.abs(got - want) / mag) <= SPLIT_TOL
+    assert np.max(np.abs(want - f32) / mag) >= 10 * SPLIT_TOL
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_bf16_step_matches_a_reference_from_the_jax_split(weighted):
+    """n_split 1: the kernel's formula (pallas_kmeans.py:211-228) on the
+    products the MXU forms from bf16-rounded operands, built from the JAX
+    package's _split_bf16 / _dot_multipass."""
+    X, init = _blobs(513, 130, 20, seed=21)
+    n_valid = 513 if weighted else 480
+    w = np.random.default_rng(5).integers(0, 3, 513).astype(np.float32)
+    if not weighted:
+        w = (np.arange(513) < n_valid).astype(np.float32)
+    Xm = jnp.where(jnp.arange(513)[:, None] < n_valid, jnp.asarray(X), 0.0)
+    C = jnp.asarray(init)
+    def bf(v):
+        return _split_bf16(v, 1)[0]
+
+    c2 = jnp.sum(C * C, axis=1)[None, :]
+    part = c2 - 2.0 * _dot_multipass(bf(Xm), bf(C), ROWS_DIMS, 1)
+    assign = jnp.argmin(part, axis=1)
+    onehot = (jnp.arange(20)[None, :] == assign[:, None]).astype(jnp.float32) * jnp.asarray(w)[:, None]
+    sums = _dot_multipass(bf(onehot), bf(Xm), (((0,), (0,)), ((), ())), 1)
+    counts = jnp.sum(onehot, axis=0)
+    x2 = jnp.sum(Xm * Xm, axis=1)
+    inertia = jnp.sum(jnp.asarray(w) * jnp.maximum(x2 + jnp.min(part, axis=1), 0.0))
+    got = lloyd.lloyd_step(
+        torch.from_numpy(X), torch.from_numpy(init), n_valid,
+        torch.from_numpy(w) if weighted else None, 1,
+    )
+    _check_step(got, (sums, counts, inertia))
+    f32 = lloyd.lloyd_step(torch.from_numpy(X), torch.from_numpy(init), n_valid,
+                           torch.from_numpy(w) if weighted else None)
+    s_j = np.asarray(sums, np.float64)
+    assert np.abs(f32[0].numpy() - s_j).max() >= 10 * 1e-5 * np.abs(s_j).max()
+
+
+@pytest.mark.parametrize("n_split", [2, 1])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_split_forms_move_every_flip_row_to_center_0(n_split, weighted):
+    """On flip data the split forms put every row in center 0 (the JAX kernel
+    at HIGH too), the f32 form none: the form is computed, not f32."""
+    X, C = _flip_data(900, 40, 7)
+    w = np.random.default_rng(7).integers(0, 4, 900).astype(np.float32) * (1 + 2.0**-9)
+    wt = torch.from_numpy(w) if weighted else None
+    s, c, _ = lloyd.lloyd_step(torch.from_numpy(X), torch.from_numpy(C), 900, wt, n_split)
+    total = float(w.sum()) if weighted else 900.0
+    assert float(c[0]) == pytest.approx(total, rel=1e-6)
+    assert float(lloyd.lloyd_step(torch.from_numpy(X), torch.from_numpy(C), 900, wt)[1][0]) == 0.0
+    if n_split == 2:
+        want = (lloyd_step_pallas(jnp.asarray(X), jnp.asarray(w), jnp.asarray(C), interpret=True,
+                                  precision=HIGH) if weighted else
+                lloyd_step_pallas_masked(jnp.asarray(X), 900, jnp.asarray(C), interpret=True,
+                                         precision=HIGH))
+        _check_step((s, c, _), want)
+
+
+def test_wrapper_rejects_an_unknown_split():
+    X, init = _blobs(50, 3, 2)
+    with pytest.raises(ValueError, match="n_split"):
+        lloyd.lloyd_step(torch.from_numpy(X), torch.from_numpy(init), 50, n_split=4)
+
+
 @pytest.mark.parametrize("unit_weight", [True, False])
 def test_lloyd_fit_matches_lloyd_fit_pallas(unit_weight):
+    _check_fit(unit_weight, 3)
+
+
+@pytest.mark.parametrize("unit_weight", [True, False])
+def test_high_lloyd_fit_matches_lloyd_fit_pallas_at_high(unit_weight):
+    _check_fit(unit_weight, 2)
+
+
+def _check_fit(unit_weight, n_split):
     X, init = _blobs(n=997, d=6, k=5, seed=11)
     w = np.ones((X.shape[0],), np.float32)
     if not unit_weight:
         w = np.random.default_rng(4).uniform(0.5, 2.0, X.shape[0]).astype(np.float32)
     c_j, in_j, it_j = lloyd_fit_pallas(
         jnp.asarray(X), jnp.asarray(w), jnp.asarray(init), 1e-6, 25,
-        interpret=True, precision=HIGHEST, unit_mask=unit_weight,
+        interpret=True, precision=PRECISION[n_split], unit_mask=unit_weight,
     )
     c_t, in_t, it_t = lloyd.lloyd_fit(
         torch.from_numpy(X), torch.from_numpy(w), torch.from_numpy(init), 1e-6, 25,
-        unit_weight=unit_weight,
+        unit_weight=unit_weight, n_split=n_split,
     )
     assert it_t == it_j
     np.testing.assert_allclose(c_t.numpy(), np.asarray(c_j), atol=1e-5)

@@ -4,7 +4,17 @@ kernels in interpret mode (ops/pallas_xtwx.py: xtx_pallas, xtxy_pallas,
 covariance_prefix_mask, normal_eq_prefix_mask) on the same numpy inputs.
 
 Tolerance: rtol 1e-5 and atol 1e-5·max|S2|, for f32 sums taken in a different
-order by the two packages."""
+order by the two packages.
+
+The n_split 2 form (parity_precision="high") against the kernels at HIGH, which
+split explicitly in interpret mode: at the same tolerance on random data (the
+port's column sums and Σy, Σy² come from the split products, Σ(x_hi + x_lo),
+where the JAX kernel sums x in f32: 2^-17 of |x| a row apart); on split data,
+where every sum is exact, S2 and Xᵀy within SPLIT_TOL = 2^-22 of their sum of
+|products| per entry, and more than 10 SPLIT_TOL from the f32 form. PCA and
+LinearRegression under "high" against the JAX estimators under "high" with
+pallas_xtwx "1" (the kernels in interpret mode), at the estimators' own
+tolerances."""
 
 import jax
 import jax.numpy as jnp
@@ -18,7 +28,11 @@ from spark_rapids_ml_tpu.ops.pallas_xtwx import (
     xtx_pallas,
     xtxy_pallas,
 )
+from spark_rapids_ml_torch import config as torch_config
 from spark_rapids_ml_torch.ops import xtwx
+
+HIGH = jax.lax.Precision.HIGH
+SPLIT_TOL = 2.0**-22
 
 
 def _data(n, d, seed=0):
@@ -245,3 +259,98 @@ def test_gram_shared_memory_fits_a_block():
     """The 4-stage ring of two 32 x 136 stripes and the outer sums fit one
     block's 227 KB on an H100."""
     assert xtwx.SMEM_BYTES <= 232_448
+
+
+def _split_data(n, d, seed):
+    """a (1 + 2^-9 + 2^-18), a uniform in 4..7: bf16 parts a and 2^-9 a and
+    2^-18 a left over, so the split falls short of every product by 3·2^-18 of
+    it; up to about 400 rows every sum of part products is exact."""
+    rng = np.random.default_rng(seed)
+    f = np.float32(1.0 + 2.0**-9 + 2.0**-18)
+    X = rng.integers(4, 8, (n, d)).astype(np.float32) * f
+    return X, rng.integers(4, 8, n).astype(np.float32) * f
+
+
+@pytest.mark.parametrize("d", [1, 3, 130])
+@pytest.mark.parametrize("n, n_valid", [(777, 777), (1000, 937)])
+def test_high_xtx_and_xtxy_match_pallas_interpret_at_high(d, n, n_valid):
+    X = _data(n, d, seed=d)
+    y = (X @ np.linspace(-1, 1, d) + 0.5).astype(np.float32)
+    want = xtxy_pallas(jnp.asarray(X), jnp.asarray(y), n_valid, precision=HIGH, interpret=True)
+    got = xtwx.xtxy(torch.from_numpy(X), torch.from_numpy(y), n_valid, 2)
+    for g, w in zip(got, want):
+        _close(g.numpy(), w)
+    s2_j, s1_j = xtx_pallas(jnp.asarray(X), n_valid, precision=HIGH, interpret=True)
+    s2_t, s1_t = xtwx.xtx(torch.from_numpy(X), n_valid, 2)
+    _close(s2_t.numpy(), s2_j)
+    _close(s1_t.numpy(), s1_j)
+
+
+@pytest.mark.parametrize("d", [2, 33])
+def test_high_gram_is_the_split_not_f32(d):
+    X, y = _split_data(401, d, seed=d)
+    want = xtxy_pallas(jnp.asarray(X), jnp.asarray(y), 401, precision=HIGH, interpret=True)
+    got = xtwx.xtxy(torch.from_numpy(X), torch.from_numpy(y), 401, 2)
+    f32 = xtwx.xtxy(torch.from_numpy(X), torch.from_numpy(y), 401)
+    X64, y64 = X.astype(np.float64), y.astype(np.float64)
+    for i, mag in ((0, X64.T @ X64), (2, X64.T @ y64)):  # S2, Xᵀy
+        g = got[i].double().numpy()
+        assert np.max(np.abs(g - np.asarray(want[i], np.float64)) / mag) <= SPLIT_TOL
+        assert np.min(np.abs(g - f32[i].double().numpy()) / mag) >= 10 * SPLIT_TOL
+
+
+def test_gram_wrappers_reject_a_split_they_have_no_form_for():
+    X = torch.zeros((5, 3))
+    with pytest.raises(ValueError, match="n_split"):
+        xtwx.xtx(X, 5, 1)
+    with pytest.raises(ValueError, match="n_split"):
+        xtwx.xtxy(X, torch.zeros(5), 5, 1)
+
+
+@pytest.fixture
+def high_both():
+    """parity_precision "high" in both packages; the JAX Gram kernels forced on
+    (pallas_xtwx "1", its off-TPU escape hatch: interpret mode)."""
+    from spark_rapids_ml_tpu import config as jax_config
+
+    jax_config.set("parity_precision", "high")
+    jax_config.set("pallas_xtwx", "1")
+    torch_config.set("parity_precision", "high")
+    yield
+    jax_config.unset("parity_precision")
+    jax_config.unset("pallas_xtwx")
+    torch_config.unset("parity_precision")
+
+
+def test_pca_under_high_matches_the_jax_estimator_under_high(high_both, monkeypatch):
+    import spark_rapids_ml_tpu.feature as jax_feature
+    from spark_rapids_ml_torch.feature import PCA
+    from tests.test_torch_pca import _assert_same_model, _data as _pca_data
+
+    seen = []
+    real = xtwx.xtx
+    monkeypatch.setattr(xtwx, "xtx", lambda X, nv, n_split=3: seen.append(n_split) or real(X, nv, n_split))
+    X = _pca_data()
+    want = jax_feature.PCA(k=3, inputCol="features").fit(X)
+    got = PCA(k=3, inputCol="features", device="cpu").fit(X)
+    assert seen == [2]
+    _assert_same_model(got, want)
+
+
+@pytest.mark.parametrize("params", [{}, {"regParam": 0.3, "elasticNetParam": 0.5}])
+def test_linear_regression_under_high_matches_the_jax_estimator_under_high(
+    params, high_both, monkeypatch
+):
+    from spark_rapids_ml_tpu.regression import LinearRegression as JaxLinearRegression
+    from spark_rapids_ml_torch.regression import LinearRegression
+    from tests.test_torch_linear import _assert_same_model, _data as _lr_data, _frame
+
+    seen = []
+    real = xtwx.xtxy
+    monkeypatch.setattr(xtwx, "xtxy", lambda X, y, nv, n_split=3: seen.append(n_split)
+                        or real(X, y, nv, n_split))
+    df = _frame(*_lr_data(seed=3))
+    want = JaxLinearRegression(**params).fit(df)
+    got = LinearRegression(device="cpu", **params).fit(df)
+    assert seen == [2]
+    _assert_same_model(got, want)
