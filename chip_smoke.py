@@ -30,7 +30,13 @@ non-zero exit code; nothing is caught):
    parity_rerank_sq of their ids, bit for bit). Non-finite inputs: count and
    the three top-k forms with NaN query and item rows against their plain
    versions, assign and Lloyd with NaN rows (center 0). The histogram kernels
-   on real-valued stats: three launches bit-equal.
+   on real-valued stats: three launches bit-equal. The redesigned kernels at
+   their tile edges: the node x bin kernel on the forest's uint8 bins (d 1,
+   15, 17, 33, 64; widths 1-64; nbins 2-256, and 257 in int32; n off the
+   1,024-row stage and the 32-row group; zero-stat and -0 rows, node -1;
+   s 2, 3, 5), the tensor-core count (nq off the 128-query tile, n off the
+   128-item tile, d 1, 7, 31, 33, 257, self pairs, eps2 = 0, every item
+   invalid).
    The bf16-split forms (n_split 1: KMeans under fast_math; n_split 2:
    parity_precision="high"): the Lloyd kernel's unit-weight and weighted forms
    at 1 and 2, assign and the Gram kernels (xtx, xtxy) at 2, at the small
@@ -71,7 +77,9 @@ non-zero exit code; nothing is caught):
      of 64 scalar columns, with the benchmark's numTrees 20, maxDepth 6) fit
      and transform: 120 node x bin kernel launches in the fit, none in the
      transform, and a 2-tree fit with the histogram routed to its plain
-     version equal to the kernel fit's first 2 trees bit for bit; then
+     version equal to the kernel fit's first 2 trees bit for bit (its levels
+     held to plain before that, on 2 and 3 integer stats, and on the
+     regressor's real stats three launches bit-equal); then
      RandomForestRegressor on the same X with y = X.beta + noise: fit,
      transform, evaluate, its first 2 trees' predictions held to a plain-route
      fit's (RF_REG_RTOL, RF_REG_MOVED). These run last, after the earlier paths' data is
@@ -104,7 +112,13 @@ non-zero exit code; nothing is caught):
    report; the cost of the Lloyd loop's per-iteration host sync. The
    bf16-split forms beside their f32 forms, with their plain versions and a
    bound of the bytes or of their part products at the bf16 peak (no PyTorch
-   call computes any of them: library none).
+   call computes any of them: library none). The count's bound also with its
+   products in 3xTF32 and its criterion in f32 (the row's), the histogram's
+   with uint8 and with int32 bins and a shared-memory figure, at s 2 and 3,
+   each beside the earlier design's time (EARLIER_*), with the launch plans
+   and the ptxas reports of both kernels; the histogram at every level of
+   tree 0 under the wrapper's plan and under one block an SM
+   (HIST_ONE_BLOCK).
 
 The last three lines of standard output are one JSON object with a row per
 kernel, the card's name and power limit as nvidia-smi gives them, and
@@ -171,6 +185,15 @@ RF_PLAIN_TREES = 2  # trees of the plain-route fits held to the kernel fits' fir
 RF_CHUNK = 1 << 20
 RF_LIB_ROWS = 1 << 21  # rows per index_add_ of the histogram library figure
 HIST_RTOL = 1e-5  # of sum |val| per bin: normal-valued histogram sums in another order
+# the earlier designs' kernel times, for phase 4's comparison (PERF.md section 6,
+# chip_smoke.py of PR 7, runs 4-5, on an NVIDIA H100 80GB HBM3 at 700.00 W):
+# node_bin_hist by (s, width) (s = 3 was not timed), segment_hist, count
+EARLIER_HIST_MS = {(2, 1): "28.69-28.94", (2, 32): "55.03-55.28"}
+EARLIER_SEGMENT_MS = "53.54-54.07"
+EARLIER_COUNT_MS = "503.29-507.76"
+# the histogram plan phase 4 compares with the wrapper's: 160 KB of replicas
+# and 1,024-row stages, one block an SM
+HIST_ONE_BLOCK = {"HIST_BYTES": 160 << 10, "MAX_STAGE_ROWS": 1024}
 # the regressor against its plain route: leaf means from reordered sums agree
 # within RF_REG_RTOL of max |prediction|, except the rows under a split that
 # moved between two near-tied bins (the plain version's index_add_ sums carry
@@ -272,6 +295,15 @@ def ptxas_lines(report: str) -> list:
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock, as nvidia-smi gives it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    return 1e6 * float(out)
 
 
 def nvidia_smi() -> str:
@@ -1046,12 +1078,41 @@ def phase_small(torch) -> None:
         for q in (0.02, 0.2):  # two eps^2 in one build: a runtime operand
             eps2 = float(torch.quantile(sample.flatten()[:1 << 20], q))
             check_count(Q, X, valid, eps2, f"nq={nq} n={n_items} d={d} eps2={eps2:.4g}")
+    phase_small_count_edges(torch)
     phase_small_topk(torch)
     phase_small_narrow(torch)
     phase_small_nonfinite(torch)
     phase_small_hist(torch)
     phase_small_hist_determinism(torch)
     torch.cuda.synchronize()
+
+
+def phase_small_count_edges(torch) -> None:
+    """The tensor-core count at the edges of its tiles: nq and n off the
+    128-query and 128-item tiles (and below them), d off the mma depth of 8
+    and the 32-column stage (1, 7, 31, 33, 257; 33 and 257 pass the query
+    tile through the ring, d <= 32 keeps it in registers), Q a subset of X
+    (self pairs) and not, eps2 = 0, and every item invalid."""
+    from spark_rapids_ml_torch.ops.count import fused_count_below
+
+    cases = [(1_001, 3_001, 1), (129, 127, 7), (1_001, 3_001, 31), (127, 3_001, 33),
+             (1_001, 1_153, 257)]
+    for nq, n_items, d in cases:
+        rng = np.random.default_rng(SEED + 300 + d)
+        Xh, _ = blobs(n_items, d, 5, SEED + 300 + d, spread=3.0)
+        X = torch.from_numpy(Xh).cuda()
+        valid = torch.from_numpy(rng.random(n_items) > 0.1).cuda()
+        for Q, what in ((X[:nq].clone(), "Q = X[:nq]"),
+                        (X[torch.from_numpy(rng.choice(n_items, nq)).cuda()]
+                         + 0.3 * torch.randn((nq, d), device="cuda"), "Q fresh")):
+            sample = ((Q[:100, None, :].double() - X[None, :, :].double()) ** 2).sum(-1)
+            for eps2 in (0.0, float(torch.quantile(sample.flatten(), 0.1))):
+                check_count(Q, X, valid, eps2, f"{what} nq={nq} n={n_items} d={d} eps2={eps2:.4g}")
+        none = torch.zeros(n_items, dtype=torch.bool, device="cuda")
+        got = fused_count_below(X[:nq].contiguous(), X, none, 1e30)
+        require(int(got.abs().sum()) == 0, f"count d={d}: an invalid item was counted")
+    log(f"  count edges: {len(cases)} shapes (nq and n off 128, d 1/7/31/33/257), self "
+        f"pairs and fresh queries, eps2 0 and a quantile, every item invalid")
 
 
 def topk_case(torch, nq: int, n: int, d: int, seed: int, mask: float):
@@ -1184,25 +1245,46 @@ def phase_small_hist(torch) -> None:
     cases (ragged rows, width 300 over several node tiles, odd d, the root
     level), and at 256 bins with s in {1, 2, 3, 5}: integer stats bit for
     bit, normal stats within HIST_RTOL; node ids of -1 and out of range, and
-    bins out of range, add nothing."""
+    bins out of range, add nothing. Then the forest's uint8 bins (and int32 at
+    257 bins) at the redesigned kernel's edges: n off the stage (1,024 rows)
+    and the 32-row group, d 1, 15, 17, 33 and 64 (off the 32-feature tile and
+    the 16-byte row copy), widths 1-64, nbins 2, 32, 255, 256 and 257, s 2, 3
+    and 5, rows with zero stats (skipped by the kernel) and -0 stats; on
+    normal stats also three launches bit-equal."""
     from spark_rapids_ml_torch.ops import histogram as H
 
-    cases = [(700, 4, 3, 8, 16), (1024, 2, 5, 256, 8), (300, 9, 1, 300, 32), (50, 3, 2, 1, 4),
-             (10_007, 13, 1, 16, 256), (10_007, 64, 2, 32, 256), (10_007, 5, 3, 64, 256),
-             (100_003, 64, 2, 32, 32), (20_011, 7, 5, 300, 256)]
-    for n, d, s, width, nbins in cases:
+    to = lambda a: torch.from_numpy(a).cuda()
+    cases = [(700, 4, 3, 8, 16, np.int32), (1024, 2, 5, 256, 8, np.int32),
+             (300, 9, 1, 300, 32, np.int32), (50, 3, 2, 1, 4, np.int32),
+             (10_007, 13, 1, 16, 256, np.int32), (10_007, 64, 2, 32, 256, np.int32),
+             (10_007, 5, 3, 64, 256, np.int32), (100_003, 64, 2, 32, 32, np.int32),
+             (20_011, 7, 5, 300, 256, np.int32),
+             (10_007, 1, 2, 1, 2, np.uint8), (1_025, 15, 3, 3, 32, np.uint8),
+             (20_011, 17, 5, 64, 255, np.uint8), (30_001, 64, 2, 32, 256, np.uint8),
+             (4_133, 64, 3, 7, 32, np.uint8), (2_047, 33, 2, 17, 257, np.int32),
+             (1_057, 64, 5, 1, 256, np.uint8), (100_003, 64, 3, 32, 32, np.uint8),
+             (100_003, 64, 2, 1, 32, np.uint8), (65_537, 17, 2, 2, 32, np.uint8)]
+    for n, d, s, width, nbins, dtype in cases:
         rng = np.random.default_rng(SEED + n + d)
-        Xb = rng.integers(0, nbins, size=(n, d)).astype(np.int32)
-        Xb[::97, 0] = nbins  # out of range: matches nothing
+        Xb = rng.integers(0, nbins, size=(n, d)).astype(dtype)
+        if nbins < 256 or dtype == np.int32:
+            Xb[::97, 0] = nbins  # out of range: matches nothing
         node = rng.integers(-1, width + 1, size=(n,)).astype(np.int32)  # -1 and width drop
-        to = lambda a: torch.from_numpy(a).cuda()
+        label = f"n={n} d={d} s={s} width={width} nbins={nbins} {np.dtype(dtype).name}"
         for exact in (True, False):
             v = (rng.poisson(1.0, (n, s)) if exact else rng.normal(size=(n, s))).astype(np.float32)
+            if dtype == np.uint8:
+                v[::5] = 0.0  # zero-stat rows
+                v[1::10] *= np.float32(-0.0)  # and -0 ones
             args = (to(Xb), to(node), to(v))
             got = H.node_bin_histogram(*args, width, nbins)
             plain = H.node_bin_histogram_plain(*args, width, nbins)
             absp = H.node_bin_histogram_plain(args[0], args[1], args[2].abs(), width, nbins)
-            check_hist(got, plain, absp, exact, f"n={n} d={d} s={s} width={width} nbins={nbins}")
+            check_hist(got, plain, absp, exact, label)
+            if not exact and dtype == np.uint8:
+                again = [H.node_bin_histogram(*args, width, nbins) for _ in range(2)]
+                require(all(torch_equal_bits(a, got) for a in again),
+                        f"hist {label}: launches differ in their bits")
     for n, d, s, n_seg in [(700, 4, 3, 96), (1024, 2, 5, 2048), (50, 3, 1, 7),
                            (100_003, 64, 2, 1024), (20_011, 3, 3, 100_000)]:
         rng = np.random.default_rng(SEED + n + s)
@@ -1214,8 +1296,9 @@ def phase_small_hist(torch) -> None:
             plain = H.segment_histogram_plain(sg, vt, n_seg)
             absp = H.segment_histogram_plain(sg, vt.abs(), n_seg)
             check_hist(got, plain, absp, exact, f"segment n={n} d={d} s={s} n_segments={n_seg}")
-    log(f"  hist: {len(cases)} node x bin and 5 segment cases, integer stats bit-equal, normal "
-        f"stats within {HIST_RTOL} of sum |val| per bin")
+    log(f"  hist: {len(cases)} node x bin (int32 and uint8 bins) and 5 segment cases, integer "
+        f"stats bit-equal, normal stats within {HIST_RTOL} of sum |val| per bin, uint8 cases "
+        f"3 launches bit-equal on normal stats")
 
 
 # ---------------------------------------------------------------- forests
@@ -1272,7 +1355,7 @@ def first_trees(attrs: dict, k: int) -> dict:
     return {key: attrs[key][:k] for key in keys}
 
 
-def phase_forest(torch, run_path, stages, path_counts, launches) -> list:
+def phase_forest(torch, run_path, stages, path_counts, launches, reports) -> list:
     """RandomForestClassifier and RandomForestRegressor at N_RF x D_RF: the
     histogram kernels against plain at the main shape (2b), both estimators'
     fit and transform (3), the kernels' times (4). Returns their JSON rows."""
@@ -1327,8 +1410,26 @@ def phase_forest(torch, run_path, stages, path_counts, launches) -> list:
     finally:
         trees.node_bin_histogram = H.node_bin_histogram
     require(sorted(level_nodes) == [2**t for t in range(RF_DEPTH)], "levels of the checked tree")
+    require(Xb.dtype == torch.uint8, f"the forest's bins are {Xb.dtype}, not uint8")
+    shares = []
+    for width, nd in sorted(level_nodes.items()):
+        c = torch.bincount(nd.long()[w0 != 0], minlength=width).double()
+        top = (c.sort(descending=True).values[:4] / c.sum()).tolist()
+        shares.append(f"w{width} " + "/".join(f"{x:.4f}" for x in top))
+    log(f"  tree 0's level nodes, the largest four's shares of the rows with nonzero stats: "
+        f"{'; '.join(shares)}")
     log(f"  node x bin kernel bit-equal to plain at every level width "
-        f"{sorted(level_nodes)} of a tree on 2-class bootstrap stats")
+        f"{sorted(level_nodes)} of a tree on 2-class bootstrap stats ({Xb.dtype} bins)")
+    # three integer stats (s = 3, the regressor's count) at the root and widest levels
+    istats = torch.stack([w0, w0 * y_cls, 2.0 * w0 * (1.0 - y_cls)], 1)
+    for width in (1, 2 ** (RF_DEPTH - 1)):
+        nd = level_nodes[width]
+        errs["node_bin_hist"] = max(errs["node_bin_hist"], check_hist(
+            H.node_bin_histogram(Xb, nd, istats, width, RF_BINS),
+            H.node_bin_histogram_plain(Xb, nd, istats, width, RF_BINS), None, True,
+            f"s=3 integer stats, width {width}"))
+    del istats
+    log("  node x bin kernel bit-equal to plain on 3 integer stats at widths 1 and 32")
     # the regressor's non-integer stats at the root and widest levels
     rstats = torch.stack([w0, w0 * torch.from_numpy(yreg).cuda(),
                           w0 * torch.from_numpy(yreg).cuda() ** 2], 1)
@@ -1341,9 +1442,12 @@ def phase_forest(torch, run_path, stages, path_counts, launches) -> list:
         ref = hist_library(torch, Xb, nd, rstats.double(), width, RF_BINS)
         ref = ref.reshape(D_RF, width, RF_BINS, 3).permute(1, 0, 2, 3)
         e_k, e_p = rel_err(got, ref), rel_err(plain, ref)
+        again = [H.node_bin_histogram(Xb, nd, rstats, width, RF_BINS) for _ in range(2)]
+        require(all(torch_equal_bits(a, got) for a in again),
+                f"regression stats width {width}: launches differ in their bits")
         log(f"  node x bin kernel, regression stats [w, w y, w y^2] at width {width}: max rel err "
             f"vs f64 kernel {e_k:.3e}, plain {e_p:.3e}; max |kernel - plain| "
-            f"{float((got - plain).abs().max()):.4g}")
+            f"{float((got - plain).abs().max()):.4g}; 3 launches bit-equal")
         require(e_k <= 2 * e_p + 1e-7, f"regression stats width {width}: kernel err {e_k} vs {e_p}")
     del rstats
     w_top = 2 ** (RF_DEPTH - 1)
@@ -1468,17 +1572,52 @@ def phase_forest(torch, run_path, stages, path_counts, launches) -> list:
     nodes32 = level_nodes[w_top]
     zeros = torch.zeros(n, dtype=torch.int32, device="cuda")
     seg = nodes32[:, None] * RF_BINS + Xb
-    out_b = lambda width: 4.0 * width * D_RF * RF_BINS * 2
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = sm_clock_hz()
+    # the regressor's stats of tree 0: [w, w y, w y^2]
+    rstats = torch.stack([w0, w0 * torch.from_numpy(yreg).cuda(),
+                          w0 * torch.from_numpy(yreg).cuda() ** 2], 1)
+    nonzero = int((w0 != 0).sum())  # rows the kernel adds (zero-stat rows are skipped)
     timed = {}
-    for width, nd in ((1, zeros), (w_top, nodes32)):
-        k_ms = time_ms(torch, lambda: H.node_bin_histogram(Xb, nd, stats, width, RF_BINS))
-        p_ms = time_ms(torch, lambda: H.node_bin_histogram_plain(Xb, nd, stats, width, RF_BINS), 3, 1)
-        l_ms = time_ms(torch, lambda: hist_library(torch, Xb, nd, stats, width, RF_BINS), 3, 1)
-        b_ms, b_by = bound(4.0 * n * D_RF + 4.0 * n + 8.0 * n + out_b(width), 2.0 * n * D_RF)
-        timed[width] = (k_ms, p_ms, l_ms, b_ms, b_by)
-        log(f"  node_bin_hist width {width}: kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  library "
-            f"{l_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
-    k_ms, p_ms, l_ms, b_ms, b_by = timed[w_top]
+    for s_, st in ((2, stats), (3, rstats)):
+        for width, nd in ((1, zeros), (w_top, nodes32)):
+            k_ms = time_ms(torch, lambda: H.node_bin_histogram(Xb, nd, st, width, RF_BINS))
+            p_ms = time_ms(torch, lambda: H.node_bin_histogram_plain(Xb, nd, st, width, RF_BINS), 3, 1)
+            l_ms = time_ms(torch, lambda: hist_library(torch, Xb, nd, st, width, RF_BINS), 3, 1)
+            nbytes = Xb.element_size() * n * D_RF + 4.0 * n + 4.0 * s_ * n + 4.0 * width * D_RF * RF_BINS * s_
+            b_ms, b_by = bound(nbytes, s_ * n * D_RF)
+            b32_ms = 1e3 * (4.0 * n * D_RF + 4.0 * n + 4.0 * s_ * n) / PEAK_BYTES
+            # shared memory: one 4-byte read and one write per (row, feature, stat)
+            # the kernel adds, at 128 bytes a clock an SM
+            smem_ms = 1e3 * 8.0 * nonzero * D_RF * s_ / (128.0 * sms * clock)
+            g = H._plan(n, D_RF, width, RF_BINS, s_, Xb.element_size(), sms)
+            timed[(s_, width)] = (k_ms, p_ms, l_ms, b_ms, b_by)
+            log(f"  node_bin_hist s={s_} width {width}: kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  "
+                f"library {l_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}, uint8 bins; {b32_ms:.4f} ms "
+                f"with int32 bins); shared-memory figure {smem_ms:.4f} ms ({nonzero} rows with "
+                f"nonzero stats, {clock / 1e9:.3f} GHz); earlier design (PR 7) "
+                f"{EARLIER_HIST_MS.get((s_, width), 'not measured')} ms; plan dt {g['dt']} wt "
+                f"{g['wt']} bt {g['bt']} P {g['P']} R {g['R']}, {g['stage_rows']}-row stages, "
+                f"{g['n_chunks']} row ranges x {g['tiles']} tiles, {g['smem']} bytes of shared "
+                f"memory a block")
+    # the plan's choice (ops/histogram.py HIST_BYTES, MAX_STAGE_ROWS): every
+    # level of tree 0 under the wrapper's plan and under one block an SM
+    for label, cfg in (("the plan", {}), ("one block an SM", HIST_ONE_BLOCK)):
+        saved = {k: getattr(H, k) for k in cfg}
+        try:
+            for k, v in cfg.items():
+                setattr(H, k, v)
+            for s_, st in ((2, stats), (3, rstats)):
+                t = {w: time_ms(torch, lambda: H.node_bin_histogram(Xb, nd, st, w, RF_BINS), 5, 1)
+                     for w, nd in sorted(level_nodes.items())}
+                log(f"  node_bin_hist under {label} {cfg}, s={s_}, tree 0's levels: "
+                    + ", ".join(f"w{w} {v:.4f}" for w, v in t.items())
+                    + f" ms; a tree {sum(t.values()):.4f} ms")
+        finally:
+            for k, v in saved.items():
+                setattr(H, k, v)
+    del rstats
+    k_ms, p_ms, l_ms, b_ms, b_by = timed[(2, w_top)]
     rows.append({"name": "node_bin_hist", "route": "cuda", "source": SOURCE["node_bin_hist"],
                  "replaces": REPLACES["node_bin_hist"], "launches": launches["node_bin_hist"],
                  "max_abs_err": errs["node_bin_hist"], "ms": k_ms, "plain_ms": p_ms,
@@ -1486,9 +1625,11 @@ def phase_forest(torch, run_path, stages, path_counts, launches) -> list:
     k_ms = time_ms(torch, lambda: H.segment_histogram(seg, stats, n_seg))
     p_ms = time_ms(torch, lambda: H.segment_histogram_plain(seg, stats, n_seg), 3, 1)
     l_ms = time_ms(torch, lambda: hist_library(torch, seg, None, stats, 1, n_seg), 3, 1)
-    b_ms, b_by = bound(4.0 * n * D_RF + 8.0 * n + out_b(w_top), 2.0 * n * D_RF)
-    log(f"  segment_hist ({n_seg} segments): kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  library "
-        f"{l_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+    b_ms, b_by = bound(4.0 * n * D_RF + 8.0 * n + 4.0 * w_top * D_RF * RF_BINS * 2, 2.0 * n * D_RF)
+    g = H._plan(n, D_RF, 1, n_seg, 2, 4, sms)
+    log(f"  segment_hist ({n_seg} segments, int32 ids): kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  "
+        f"library {l_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}); earlier design (PR 7) "
+        f"{EARLIER_SEGMENT_MS} ms; plan bt {g['bt']} P {g['P']} R {g['R']}, {g['tiles']} tiles")
     rows.append({"name": "segment_hist", "route": "cuda", "source": SOURCE["segment_hist"],
                  "replaces": REPLACES["segment_hist"], "launches": launches["segment_hist"],
                  "max_abs_err": errs["segment_hist"], "ms": k_ms, "plain_ms": p_ms,
@@ -1498,6 +1639,8 @@ def phase_forest(torch, run_path, stages, path_counts, launches) -> list:
         f"segment kernel has no launch on the main path (no caller in either package's fit)")
     log(f"  node_bin_hist launches on the main paths: {launches['node_bin_hist']} "
         f"({RF_TREES} trees x {RF_DEPTH} levels per fit)")
+    for line in ptxas_lines(reports["hist"]):
+        log(f"  ptxas hist: {line}")
     return rows
 
 
@@ -2098,6 +2241,17 @@ def main() -> int:
         if name in TF32X3:
             tc_ms, tc_by = bound_tf32x3(nbytes, flops)
             tc = f", 3xTF32 bound {tc_ms:.4f} ms ({tc_by})"
+        if name == "count":
+            # the kernel's own types: its products in 3xTF32 (three TF32 operations
+            # each at the tensor cores' peak), its criterion (4 a pair) in f32
+            prod, crit = 2.0 * N_DB * N_DB * D_DB, 4.0 * N_DB * N_DB
+            t_o = 3.0 * prod / PEAK_TF32_FLOPS + crit / PEAK_F32_FLOPS
+            t_b = nbytes / PEAK_BYTES
+            tc = (f": products in 3xTF32 {1e3 * 3.0 * prod / PEAK_TF32_FLOPS:.4f} ms + criterion "
+                  f"in f32 {1e3 * crit / PEAK_F32_FLOPS:.4f} ms, the row's bound; f32 CUDA-core "
+                  f"bound {b_ms:.4f} ms; earlier design (f32 FMA, PR 7) {EARLIER_COUNT_MS} ms; "
+                  f"launch plan {count_mod._plan(N_DB, N_DB, D_DB)}")
+            b_ms, b_by = 1e3 * max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
         log(f"  {name}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library "
             f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}  bound {b_ms:.4f} ms ({b_by}){tc}")
         rows.append({
@@ -2249,7 +2403,7 @@ def main() -> int:
             f"{topk_mod._splits(NQ_KNN10, N_MAIN, kk, sms)[0]}")
     log(f"  xtx/xtxy: {xtwx.SMEM_BYTES} bytes of dynamic shared memory a block, one block "
         f"per SM; {xtwx._chunks(N_MAIN, 3, sms)[1]} row chunks x 3 tiles at d = {D_MAIN}")
-    for name in ("xtx", "topk"):
+    for name in ("xtx", "topk", "count"):
         for line in ptxas_lines(reports[name]):
             log(f"  ptxas {name}: {line}")
 
@@ -2283,7 +2437,7 @@ def main() -> int:
     del Xh, X, y, x2_main, specs, split_specs, Xdb, Qk, Qk10, narrow_items
     gc.collect()
     torch.cuda.empty_cache()
-    rows += phase_forest(torch, run_path, stages, path_counts, launches)
+    rows += phase_forest(torch, run_path, stages, path_counts, launches, reports)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

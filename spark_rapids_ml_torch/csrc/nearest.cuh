@@ -1,4 +1,4 @@
-// The distance tile shared by lloyd.cu, assign.cu and count.cu, and the
+// The distance tile shared by lloyd.cu and assign.cu, and the
 // nearest-center search over one tile of rows built on it (lloyd, assign).
 //
 // A block of NR_THREADS threads takes NR_ROWS rows at a time. Centers pass
@@ -41,7 +41,6 @@ struct NearestSmemT {
   float best_v[NR_ROWS];  // criterion of the nearest center
   int best_i[NR_ROWS];    // index of the nearest center
 };
-typedef NearestSmemT<3> NearestSmem;  // the f32 form
 
 // Stage v, or its parts, at (rr, cc) of a tile: xs / xs_lo or cs / cs_lo.
 template <int NSPLIT>
@@ -53,32 +52,15 @@ __device__ __forceinline__ void stage_value(float v, float (*hi)[NR_D + 1],
   if constexpr (NSPLIT == 2) lo[rr][cc] = l;
 }
 
-// Stage columns [d0, d0 + NR_D) of the row tile at row0 into sm.xs; rows at or
-// past n_rows and columns past d read as zeros.
-__device__ __forceinline__ void stage_rows(const float* __restrict__ X, int64_t row0,
-                                           int64_t n_rows, int d, int d0,
-                                           NearestSmem& sm) {
-  for (int e = threadIdx.x; e < NR_ROWS * NR_D; e += NR_THREADS) {
-    const int rr = e / NR_D;
-    const int cc = e % NR_D;
-    const int64_t row = row0 + rr;
-    const int col = d0 + cc;
-    sm.xs[rr][cc] = (row < n_rows && col < d) ? X[row * d + col] : 0.f;
-  }
-}
-
 // The distance tile's cross terms: acc[q] = x_r . c_(k0 + g + 8q), q = 0..3, for
 // this thread's row r = tid / 8 and centers g = tid % 8 of the chunk at k0, over
 // all d columns, at NSPLIT (see the header). Both tiles pass through sm 32
-// columns at a time; centers at or past k read as zeros. With ROWS_RESIDENT
-// (d <= NR_D, the f32 form) the caller has staged the row tile into sm.xs once
-// (stage_rows) and only the centers are staged here.
-template <bool ROWS_RESIDENT, int NSPLIT = 3>
+// columns at a time; centers at or past k read as zeros.
+template <int NSPLIT>
 __device__ __forceinline__ void cross_chunk(const float* __restrict__ X, int64_t row0,
                                             int64_t n_rows, int d,
                                             const float* __restrict__ C, int k0, int k,
                                             NearestSmemT<NSPLIT>& sm, float acc[4]) {
-  static_assert(!ROWS_RESIDENT || NSPLIT == 3, "resident rows are staged in f32");
   const int tid = threadIdx.x;
   const int r = tid >> 3;
   const int g = tid & 7;
@@ -90,11 +72,9 @@ __device__ __forceinline__ void cross_chunk(const float* __restrict__ X, int64_t
       const int rr = e / NR_D;
       const int cc = e % NR_D;
       const int col = d0 + cc;
-      if (!ROWS_RESIDENT) {  // NR_K == NR_ROWS: one loop stages both
-        const int64_t row = row0 + rr;
-        stage_value<NSPLIT>((row < n_rows && col < d) ? X[row * d + col] : 0.f, sm.xs,
-                            sm.xs_lo, rr, cc);
-      }
+      const int64_t row = row0 + rr;  // NR_K == NR_ROWS: one loop stages both
+      stage_value<NSPLIT>((row < n_rows && col < d) ? X[row * d + col] : 0.f, sm.xs,
+                          sm.xs_lo, rr, cc);
       const int kk = k0 + rr;
       stage_value<NSPLIT>((kk < k && col < d) ? C[(int64_t)kk * d + col] : 0.f, sm.cs,
                           sm.cs_lo, rr, cc);
@@ -154,7 +134,7 @@ __device__ __forceinline__ void nearest_tile(const float* __restrict__ X,
   int bi = 0;
   for (int k0 = 0; k0 < k; k0 += NR_K) {
     float acc[4];
-    cross_chunk<false, NSPLIT>(X, row0, n_rows, d, C, k0, k, sm, acc);
+    cross_chunk<NSPLIT>(X, row0, n_rows, d, C, k0, k, sm, acc);
     float lv = INFINITY;
     int li = 0x7fffffff;
 #pragma unroll

@@ -1,7 +1,7 @@
 // f32-accurate matrix products on Hopper's tensor cores (3xTF32), and the
 // cp.async helpers of the multi-stage rings that feed them. Shared by the
-// top-k kernel (topk.cu) and the Gram kernel (xtx.cu); the histogram kernel
-// (hist.cu) takes the cp.async helpers.
+// top-k kernel (topk.cu), the eps-count kernel (count.cu) and the Gram kernel
+// (xtx.cu); the histogram kernel (hist.cu) takes the cp.async helpers.
 //
 // 3xTF32. The tensor cores multiply TF32 operands (f32 with 10 explicit
 // mantissa bits) at 495 TFLOP/s on an H100 SXM, against 67 TFLOP/s for f32 FMA

@@ -54,13 +54,14 @@ ENTRIES = {
              [_P, _P, _L, _I, _L, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P]),
     "lloyd": ("lloyd", "srml_lloyd_step", [_P, _P, _L, _I, _P, _P, _I, _L, _I, _P, _P, _I, _P]),
     "assign": ("assign", "srml_assign", [_P, _L, _I, _P, _P, _I, _P, _I, _I, _P]),
-    "count": ("count", "srml_count", [_P, _P, _L, _I, _P, _P, _I, _F, _P, _I, _P]),
+    "count": ("count", "srml_count", [_P, _P, _L, _I, _P, _P, _I, _F, _P, _P]),
     "topk": ("topk", "srml_topk",
              [_P, _P, _L, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P]),
     "node_bin_hist": ("hist", "srml_node_bin_hist",
-                      [_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _L, _I, _I, _I, _P, _P, _P]),
+                      [_P, _I, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _L, _I, _I, _I,
+                       _I, _I, _P, _P, _P]),
     "segment_hist": ("hist", "srml_segment_hist",
-                     [_P, _P, _L, _I, _I, _I, _I, _I, _L, _I, _I, _I, _P, _P, _P]),
+                     [_P, _P, _L, _I, _I, _I, _I, _I, _I, _L, _I, _I, _I, _I, _I, _P, _P, _P]),
 }
 
 _lock = threading.Lock()

@@ -8,8 +8,9 @@
 # `fused_count_below` launches the CUDA kernel csrc/count.cu for tensors on the
 # card, always (the JAX package's `knn.selection` / `pallas_min_items` gate is a
 # fact about the TPU), and runs `count_below_plain`, the same function in plain
-# PyTorch, for tensors on the CPU. The kernel's design and its bound on the H100
-# are in the source's header.
+# PyTorch, for tensors on the CPU. The kernel computes the cross terms in 3xTF32
+# on the tensor cores, at f32 accuracy (csrc/tf32x3.cuh); its design and its
+# bound on the H100 are in the source's header, and `_plan` mirrors its launch.
 #
 
 from __future__ import annotations
@@ -20,6 +21,14 @@ import torch
 
 from . import _cuda
 from .knn import _block_sq_dists, query_blocks
+
+QUERY_TILE = 128  # csrc/count.cu CQT: queries of a block
+ITEM_TILE = 128  # CIT: items of a tile
+DEPTH = 32  # CDK: feature columns of a ring stage
+STAGES = 3  # CSTAGES
+ROW_FLOATS = DEPTH + 4  # CLDK: a staged row's stride
+WARPS_N = 2  # CWARPS_N: warps that share a query
+MAX_SMEM_BYTES = 227 * 1024  # the most a block may use on the H100
 
 
 def count_below_plain(
@@ -34,6 +43,18 @@ def count_below_plain(
         hit = (_block_sq_dists(Q[sl], X, x2) <= eps2) & valid[None, :]
         out[sl] = hit.sum(dim=1, dtype=torch.int32)
     return out
+
+
+def _plan(nq: int, n: int, d: int) -> dict:
+    """The kernel's launch (csrc/count.cu srml_count): one block a tile of
+    QUERY_TILE queries scanning every item tile; at d <= DEPTH the query
+    tile's fragments stay in registers and only the items pass through the
+    ring. Returns blocks, resident, item tiles and the dynamic shared memory."""
+    resident = d <= DEPTH
+    rows = (0 if resident else QUERY_TILE) + ITEM_TILE
+    return dict(blocks=-(-nq // QUERY_TILE), resident=resident,
+                item_tiles=-(-n // ITEM_TILE), column_chunks=-(-d // DEPTH),
+                smem=4 * STAGES * rows * ROW_FLOATS + 4 * WARPS_N * QUERY_TILE)
 
 
 def fused_count_below(
@@ -55,10 +76,9 @@ def fused_count_below(
     # the mask rides in the norm operand: an invalid item's norm reads -1
     x2m = torch.where(valid, torch.sum(X * X, dim=1), -1.0)
     counts = torch.empty((nq,), dtype=torch.int32, device=Q.device)
-    n_blocks = max(1, min(-(-nq // _cuda.NR_ROWS), 8 * _cuda.sm_count(Q)))
     _cuda.check(
         fn(Q.data_ptr(), q2.data_ptr(), nq, d, X.data_ptr(), x2m.data_ptr(), n,
-           float(eps2), counts.data_ptr(), n_blocks, _cuda.stream_of(Q)),
+           float(eps2), counts.data_ptr(), _cuda.stream_of(Q)),
         "count kernel",
     )
     fused_count_below.launches += 1

@@ -2,7 +2,9 @@
 # Level histograms of the random-forest builder (counterpart of the JAX
 # package's ops/pallas_histogram.py):
 #   node_bin_histogram(Xb, node_id, values, width, nbins) -> (width, d, nbins, s)
-#     out[w, j, b, k] = sum_r [node_r = w] [Xb[r, j] = b] values[r, k];
+#     out[w, j, b, k] = sum_r [node_r = w] [Xb[r, j] = b] values[r, k],
+#     with uint8 bins (the forest's, ops/trees.py::bin_features at maxBins <= 256)
+#     or int32 ones;
 #   segment_histogram(seg_ids, values, n_segments) -> (d, n_segments, s)
 #     out[j, g, k] = sum_r [seg[r, j] = g] values[r, k].
 # A node, bin or segment id outside its range matches nothing.
@@ -14,7 +16,8 @@
 # chunks of at most 2^28 (row, feature, stat) elements. The kernels add in a
 # fixed order, so one input gives one histogram, bit for bit, on every run
 # (and one forest, whatever its stats). Their design and bound on the H100
-# are in the source's header; the TPU's tile constants
+# are in the source's header; `_plan` picks each launch's tile, warps, row
+# stages and row ranges. The TPU's tile constants
 # (BLOCK_ROWS, MAX_SEG_TILE, the node tile of 256, the VMEM budgets) have no
 # counterpart here.
 #
@@ -27,14 +30,22 @@ import torch
 
 from . import _cuda
 
-SMEM_BYTES = 64 * 1024  # a block's histogram tile
-BLOCK_BYTES = 72 * 1024  # the tile and its two row stages: three blocks per SM
+HIST_WARPS = 16  # csrc/hist.cu HIST_WARPS_MAX: warps of a block
+TILE_FEATURES = 32  # csrc/hist.cu HIST_LANES: a tile's features, one a lane
+MIN_WARPS = 4  # bins are cut until this many warps share a tile
+# a block's histogram replicas: small, so that three blocks share an SM. The
+# forest's level nodes are very uneven and a warp that owns a large node bounds
+# its block; more blocks an SM keep more such warps running. A level whose
+# bins would have to be cut into tiles at that size (a node's bins do not fit
+# MIN_WARPS replicas: many bins, many stats) takes WIDE_HIST_BYTES instead.
+HIST_BYTES = 48 * 1024
+WIDE_HIST_BYTES = 160 * 1024
 SM_BYTES = 228 * 1024  # H100: shared memory of an SM (1 KB of it reserved a block)
 MAX_SMEM_BYTES = 227 * 1024  # the most a block may use on the H100
-HIST_THREADS = 512  # csrc/hist.cu: at most 16 warps, one a feature of the tile
-MAX_TILE_FEATURES = 128  # features of a tile, so a staged row stays small
-CUT_TILE_FEATURES = 16  # a level cut into tiles: one warp a feature
-MAX_STAGE_ROWS = 1024
+MAX_STAGE_ROWS = 256
+RING = 2  # csrc/hist.cu HIST_RING: row stages a block holds
+SCAN_GROUPS = 4  # csrc/hist.cu HIST_SCAN: 32-row groups a warp lists at a time
+HIST_WAVES = 4  # row ranges: about this many waves of the resident blocks
 PART_BYTES = 256 << 20  # scratch for the row ranges' partial histograms
 MIN_CHUNK_ROWS = 1024
 PLAIN_CHUNK_ELEMS = 1 << 28
@@ -86,41 +97,77 @@ def segment_histogram_plain(
     ).contiguous()
 
 
-def _tiles(d: int, width: int, nbins: int, s: int) -> Tuple[int, int, int]:
-    """(features, nodes, bins) of a block's histogram tile: as many bins as
-    fit (all of them unless nbins * s is very large), then nodes, then
-    features, within SMEM_BYTES with each feature's region padded by one
-    float, and at most MAX_TILE_FEATURES features. A level that has to be cut
-    into feature tiles anyway is cut into tiles of at most CUT_TILE_FEATURES,
-    one warp a feature: the histogram tile then leaves room for deep row
-    stages, where a 56-feature tile at 4 nodes left room for 32 rows. Feature
-    tiles of 8 or more are cut to a multiple of 8 (a 32-byte sector of a
-    row's bin ids)."""
-    cap = SMEM_BYTES // 4
-    bt = max(1, min(nbins, (cap - 1) // s))
-    wt = max(1, min(width, (cap - 1) // (bt * s)))
-    dt = max(1, min(d, MAX_TILE_FEATURES, cap // (wt * bt * s + 1)))
-    if dt < d:
-        dt = min(dt, CUT_TILE_FEATURES)
-    if 8 <= dt < d:
-        dt -= dt % 8
-    return dt, wt, bt
+def _balanced(total: int, most: int) -> int:
+    """The tile size that cuts `total` into as few tiles as `most` allows,
+    all of about one size."""
+    return -(-total // -(-total // max(1, most)))
 
 
-def _stage_rows(dt: int, wt: int, bt: int, s: int) -> int:
-    """Rows a block stages at a time (two stages in flight): as many as keep
-    the block within BLOCK_BYTES beside its histogram tile, a multiple of 32,
-    from 32 to MAX_STAGE_ROWS. A staged row is its dt bin ids at an odd
-    stride, its node id and its s stats."""
-    room = BLOCK_BYTES - 4 * dt * (wt * bt * s + 1)
-    rows = room // (8 * ((dt | 1) + 1 + s)) // 32 * 32
+def _budget(nbins: int, s: int) -> int:
+    """Bytes of a block's replicas: HIST_BYTES, or WIDE_HIST_BYTES when a
+    node's bins do not fit MIN_WARPS replicas in HIST_BYTES."""
+    node = 4 * TILE_FEATURES * s * nbins
+    return HIST_BYTES if MIN_WARPS * node <= HIST_BYTES else WIDE_HIST_BYTES
+
+
+def _tiles(d: int, width: int, nbins: int, s: int) -> Tuple[int, int, int, int, int]:
+    """(features, nodes, bins, P, R) of a block: a tile of up to
+    TILE_FEATURES features, and as many bins and then nodes as fit with the
+    warps' replicas in `_budget`, each (node, bin) cell taking s stats x 32
+    lanes of f32 (csrc/hist.cu). P = min(HIST_WARPS, nodes) warps split the
+    tile's nodes, and R of them split its rows, one replica of the tile each,
+    as many as fit and HIST_WARPS allows: deep levels take P nodes' subsets of
+    one replica, the root R replicas. Bins are cut until MIN_WARPS warps
+    share a tile (a level of one node and many bins); node and bin tiles are
+    balanced."""
+    dt = min(d, TILE_FEATURES)
+    cap = max(1, _budget(nbins, s) // (4 * TILE_FEATURES * s))  # cells that fit
+    bt = min(nbins, cap)
+    while True:
+        wt = _balanced(width, max(1, cap // bt))
+        P = min(HIST_WARPS, wt)
+        R = max(1, min(HIST_WARPS // P, cap // (wt * bt)))
+        if P * R >= MIN_WARPS or bt == 1:
+            return dt, wt, _balanced(nbins, bt), P, R
+        bt = -(-bt // 2)
+
+
+def _vec16(d: int, dt: int, esize: int) -> bool:
+    """Whether every tile of a row starts and ends on 16 bytes (the staging
+    takes 16-byte copies; else the 4-byte words that cover the tile)."""
+    return (d * esize) % 16 == 0 and (dt == d or (dt * esize) % 16 == 0)
+
+
+def _slot_bytes(dt: int, esize: int, vec16: bool) -> int:
+    """Bytes a staged row's bin ids take: the tile's, in 16-byte copies, or
+    the 4-byte words that cover them wherever they start; a multiple of 16."""
+    need = dt * esize if vec16 else 4 * -(-(dt * esize + 3) // 4)
+    return -(-need // 16) * 16
+
+
+def _hist_bytes(wt: int, bt: int, s: int, R: int) -> int:
+    return 4 * R * wt * bt * s * TILE_FEATURES
+
+
+def _list_bytes(P: int, R: int) -> int:
+    """Each warp's list of its rows of a scan window (4-byte entries)."""
+    return 4 * P * R * SCAN_GROUPS * 32
+
+
+def _stage_rows(wt: int, bt: int, s: int, P: int, R: int, slot: int) -> int:
+    """Rows a block stages at a time (a ring of RING stages): as many as fit
+    beside the replicas and the warps' row lists within MAX_SMEM_BYTES, a
+    multiple of 32, from 32 to MAX_STAGE_ROWS. A staged row is its bin ids,
+    its node id, its s stats and its local node id (2 bytes, once)."""
+    room = MAX_SMEM_BYTES - _hist_bytes(wt, bt, s, R) - _list_bytes(P, R)
+    rows = room // (RING * (slot + 4 + 4 * s) + 2) // 32 * 32
     return max(32, min(MAX_STAGE_ROWS, rows))
 
 
-def _smem_bytes(dt: int, wt: int, bt: int, s: int, stage_rows: int) -> int:
-    """Dynamic shared memory of a block (csrc/hist.cu hist_smem_bytes): the
-    histogram tile and two stages of stage_rows rows."""
-    return 4 * (dt * (wt * bt * s + 1) + 2 * stage_rows * ((dt | 1) + 1 + s))
+def _smem_bytes(wt: int, bt: int, s: int, P: int, R: int, stage_rows: int, slot: int) -> int:
+    """Dynamic shared memory of a block (csrc/hist.cu hist_smem_bytes)."""
+    return (_hist_bytes(wt, bt, s, R) + RING * stage_rows * (slot + 4 + 4 * s)
+            + 2 * stage_rows + _list_bytes(P, R))
 
 
 def _chunks(n: int, tiles: int, out_elems: int, sms: int, per_sm: int = 4) -> Tuple[int, int]:
@@ -134,48 +181,64 @@ def _chunks(n: int, tiles: int, out_elems: int, sms: int, per_sm: int = 4) -> Tu
     return rows, -(-max(n, 1) // rows)
 
 
-def _launch(entry: str, Xb, node_id, values, width: int, nbins: int) -> torch.Tensor:
-    n, d = Xb.shape
-    s = values.shape[1]
-    dt, wt, bt = _tiles(d, width, nbins, s)
+def _plan(n: int, d: int, width: int, nbins: int, s: int, esize: int, sms: int) -> dict:
+    """The kernel's launch plan for one level (every argument of the C entry
+    but the pointers)."""
+    dt, wt, bt, P, R = _tiles(d, width, nbins, s)
+    vec16 = _vec16(d, dt, esize)
+    slot = _slot_bytes(dt, esize, vec16)
+    stage_rows = _stage_rows(wt, bt, s, P, R, slot)
+    smem = _smem_bytes(wt, bt, s, P, R, stage_rows, slot)
     tiles = -(-d // dt) * -(-width // wt) * -(-nbins // bt)
     out_elems = width * d * nbins * s
-    stage_rows = _stage_rows(dt, wt, bt, s)
-    smem = _smem_bytes(dt, wt, bt, s, stage_rows)
-    # two waves of the blocks resident on an SM (by shared memory and threads)
-    resident = max(1, min(SM_BYTES // (smem + 1024), 2048 // min(HIST_THREADS, 32 * dt)))
-    rows, n_chunks = _chunks(n, tiles, out_elems, _cuda.sm_count(Xb), 2 * resident)
+    resident = max(1, SM_BYTES // (smem + 1024))
+    rows, n_chunks = _chunks(n, tiles, out_elems, sms, HIST_WAVES * resident)
     if n_chunks * tiles >= 2**31 or smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"the histogram kernel cannot take {width} nodes x {nbins} bins x {s} stats"
         )
+    return dict(dt=dt, wt=wt, bt=bt, P=P, R=R, vec16=vec16, slot=slot, stage_rows=stage_rows,
+                smem=smem, tiles=tiles, rows=rows, n_chunks=n_chunks,
+                reduce_blocks=max(1, min(-(-out_elems // 256), 8 * sms)))
+
+
+def _launch(entry: str, Xb, node_id, values, width: int, nbins: int) -> torch.Tensor:
+    n, d = Xb.shape
+    s = values.shape[1]
+    if Xb.data_ptr() % 16:  # a view off a 16-byte boundary: the copies read aligned words
+        Xb = Xb.clone()
+    g = _plan(n, d, width, nbins, s, Xb.element_size(), _cuda.sm_count(Xb))
     out = torch.empty((width, d, nbins, s), dtype=torch.float32, device=Xb.device)
     part = (
-        torch.empty((n_chunks, out_elems), dtype=torch.float32, device=Xb.device)
-        if n_chunks > 1 else out
+        torch.empty((g["n_chunks"], width * d * nbins * s), dtype=torch.float32,
+                    device=Xb.device)
+        if g["n_chunks"] > 1 else out
     )
-    reduce_blocks = max(1, min(-(-out_elems // 256), 8 * _cuda.sm_count(Xb)))
-    stream = _cuda.stream_of(Xb)
+    tail = (g["rows"], g["n_chunks"], g["stage_rows"], g["slot"], int(g["vec16"]),
+            g["reduce_blocks"], part.data_ptr(), out.data_ptr(), _cuda.stream_of(Xb))
     fn = _cuda.entry(entry)
     if node_id is None:
-        rc = fn(Xb.data_ptr(), values.data_ptr(), n, d, s, nbins, dt, bt, rows, n_chunks,
-                stage_rows, reduce_blocks, part.data_ptr(), out.data_ptr(), stream)
+        rc = fn(Xb.data_ptr(), values.data_ptr(), n, d, s, nbins, g["dt"], g["bt"], g["R"], *tail)
     else:
-        rc = fn(Xb.data_ptr(), node_id.data_ptr(), values.data_ptr(), n, d, s, width, nbins,
-                dt, wt, bt, rows, n_chunks, stage_rows, reduce_blocks, part.data_ptr(),
-                out.data_ptr(), stream)
+        rc = fn(Xb.data_ptr(), Xb.element_size(), node_id.data_ptr(), values.data_ptr(), n, d,
+                s, width, nbins, g["dt"], g["wt"], g["bt"], g["P"], g["R"], *tail)
     _cuda.check(rc, f"{entry} kernel")
     return out
+
+
+BIN_TYPES = (torch.uint8, torch.int32)
 
 
 def node_bin_histogram(
     Xb: torch.Tensor, node_id: torch.Tensor, values: torch.Tensor, width: int, nbins: int
 ) -> torch.Tensor:
-    """(width, d, nbins, s) f32 level histogram of Xb (n, d) int32 bins under
-    node_id (n,) int32 with values (n, s) f32."""
+    """(width, d, nbins, s) f32 level histogram of Xb (n, d) uint8 or int32
+    bins under node_id (n,) int32 with values (n, s) f32."""
     n, d = Xb.shape
     s = values.shape[1]
-    _cuda.require(Xb, "Xb", (n, d), torch.int32)
+    if Xb.dtype not in BIN_TYPES:
+        raise TypeError(f"Xb must be uint8 or int32, got {Xb.dtype}")
+    _cuda.require(Xb, "Xb", (n, d), Xb.dtype)
     _cuda.require(node_id, "node_id", (n,), torch.int32)
     _cuda.require(values, "values", (n, s))
     if width < 1 or nbins < 1:

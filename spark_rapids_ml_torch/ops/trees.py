@@ -2,7 +2,8 @@
 # Histogram-based random-forest builder of the PyTorch port (counterpart of the
 # in-core half of the JAX package's ops/trees.py):
 #   * features are quantile-binned once (max_bins buckets, edges from a host
-#     row sample), and trees only ever touch int32 bin ids;
+#     row sample), and trees only ever touch bin ids: uint8 up to 256 bins (a
+#     quarter of int32's bytes for the histogram kernel to read), int32 above;
 #   * trees grow level-wise over a perfect binary heap (level t has 2^t node
 #     slots); per level one node x bin histogram (ops/histogram.py, the CUDA
 #     kernel of csrc/hist.cu on the card) gives every split's statistics;
@@ -67,12 +68,15 @@ def quantile_bin_edges(
 
 
 def bin_features(X: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
-    """int32 bins (n, d) on X's device: bin = number of edges < x, in
-    [0, max_bins-1]. X is compared in f32; a few features at a time are
-    transposed so searchsorted runs along each feature's edges."""
+    """Bins (n, d) on X's device: bin = number of edges < x, in
+    [0, max_bins-1], with max_bins = edges.shape[1] + 1; uint8 when
+    max_bins <= 256 (as the JAX package's streamed fit bins), else int32. X is
+    compared in f32; a few features at a time are transposed so searchsorted
+    runs along each feature's edges."""
     n, d = X.shape
     edges = edges.to(device=X.device, dtype=torch.float32).contiguous()
-    Xb = torch.empty((n, d), dtype=torch.int32, device=X.device)
+    dtype = torch.uint8 if edges.shape[1] + 1 <= 256 else torch.int32
+    Xb = torch.empty((n, d), dtype=dtype, device=X.device)
     step = max(1, BIN_CHUNK_ELEMS // max(n, 1))
     for j0 in range(0, d, step):
         j1 = min(d, j0 + step)
@@ -219,7 +223,7 @@ def _level_step(
 
 
 def build_tree(
-    Xb: torch.Tensor,  # (n, d) int32 bins
+    Xb: torch.Tensor,  # (n, d) uint8 or int32 bins
     values: torch.Tensor,  # (n, s) per-row stats already weighted (0 rows add 0)
     edges: torch.Tensor,  # (d, nbins-1) real thresholds, on Xb's device
     generator: torch.Generator,  # per-tree feature-subset draws

@@ -120,3 +120,108 @@ def test_query_blocks_cover_the_rows_once_within_the_byte_budget():
     rows = np.concatenate([np.arange(1000)[b] for b in blocks])
     np.testing.assert_array_equal(rows, np.arange(1000))
     assert all(4 * (b.stop - b.start) * (1 << 20) <= knn.TILE_BYTES for b in blocks)
+
+
+@pytest.mark.parametrize("nq", [1, 127, 128, 129, 1777, 262_144])
+@pytest.mark.parametrize("n,d", [(1, 1), (127, 7), (128, 32), (5003, 33), (262_144, 32), (300, 257)])
+def test_count_launch_plan_covers_every_query_once_and_fits(nq, n, d):
+    """The kernel's launch (csrc/count.cu): one block a 128-query tile, every
+    query in one block, every item in one 128-item tile, d in 32-column ring
+    stages; the query tile's fragments stay in registers exactly when d <= 32
+    (the main path's 262,144 x 32); the ring and the warps' counts fit the
+    card's 227 KB."""
+    g = count._plan(nq, n, d)
+    Q, IT = count.QUERY_TILE, count.ITEM_TILE
+    assert (g["blocks"] - 1) * Q < nq <= g["blocks"] * Q
+    assert (g["item_tiles"] - 1) * IT < n <= g["item_tiles"] * IT
+    assert (g["column_chunks"] - 1) * count.DEPTH < d <= g["column_chunks"] * count.DEPTH
+    assert g["resident"] == (d <= count.DEPTH)
+    assert g["smem"] <= count.MAX_SMEM_BYTES
+    if (nq, n, d) == (262_144, 262_144, 32):
+        assert g["blocks"] == 2048 and g["resident"] and g["column_chunks"] == 1
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 explicit mantissa bits), ties away from zero, as
+    csrc/tf32x3.cuh's split rounds."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_truncated(x):
+    """x's TF32 part as the tensor cores read an f32 operand."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _count_3xtf32(Q, X, valid, eps2):
+    """The count kernel's arithmetic in plain PyTorch: q.x in 3xTF32 per
+    32-column ring stage (lo.hi + hi.lo, then hi.hi, in f32), the stages
+    added in f32, d2 = fma(-2, q.x, q2) + x2m, clamped keeping NaN, an
+    invalid item's x2m -1."""
+    q2 = (Q * Q).sum(1)
+    x2m = torch.where(valid, (X * X).sum(1), -1.0)
+    cross = torch.zeros((Q.shape[0], X.shape[0]), dtype=torch.float32)
+    for c in range(0, Q.shape[1], count.DEPTH):
+        a, b = Q[:, c : c + count.DEPTH], X[:, c : c + count.DEPTH].T
+        a_hi, b_hi = _tf32(a), _tf32(b)
+        a_lo, b_lo = _tf32_truncated(a - a_hi), _tf32_truncated(b - b_hi)
+        cross += (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+    d2 = (q2.double()[:, None] - 2.0 * cross.double()).float() + x2m[None, :]
+    d2 = torch.where(d2 < 0, 0.0, d2)
+    return ((x2m[None, :] >= 0) & (d2 <= eps2)).sum(1)
+
+
+@pytest.mark.parametrize(
+    "nq, n, d, seed", [(403, 403, 7, 0), (150, 611, 3, 1), (97, 260, 33, 2), (64, 300, 70, 3)]
+)
+@pytest.mark.parametrize("q", [0.05, 0.3])
+def test_tf32x3_count_keeps_the_kernels_accuracy(nq, n, d, seed, q):
+    """The tensor-core count's numerical design, emulated on the CPU: with
+    eps² at least 1e-5 (|q| + |x|)² from every pair's d2, its counts equal
+    the f64 count and the JAX package's Pallas count in interpret mode; at
+    an eps² on a pair's d2 it differs from f64 only on pairs within
+    chip_smoke.py's COUNT_RTOL band (4e-6 (|q| + |x|)²)."""
+    rng = np.random.default_rng(seed + 20)
+    X = _points(n, d, seed)
+    Q = X[:nq].copy() if nq == n else _points(nq, d, seed + 5)
+    valid = rng.random(n) > 0.15
+    Qt, Xt, vt = torch.from_numpy(Q), torch.from_numpy(X), torch.from_numpy(valid)
+    eps2 = _eps2_away_from_every_pair(Q, X, q)
+    got = _count_3xtf32(Qt, Xt, vt, eps2).numpy()
+    want = np.asarray(jax_ps.fused_count_below(
+        jnp.asarray(Q), jnp.asarray(X), jnp.asarray(valid), eps2, interpret=True
+    ))
+    np.testing.assert_array_equal(got, want)
+    d2 = _d2_64(Q, X)
+    eps2 = float(np.quantile(d2[:, valid], q))  # on a pair
+    exact = ((d2 <= eps2) & valid[None, :]).sum(1)
+    qn, xn = np.linalg.norm(Q.astype(np.float64), axis=1), np.linalg.norm(X.astype(np.float64), axis=1)
+    near = ((np.abs(d2 - eps2) <= 4e-6 * (qn[:, None] + xn[None, :]) ** 2) & valid[None, :]).sum(1)
+    got = _count_3xtf32(Qt, Xt, vt, eps2).numpy()
+    assert np.all(np.abs(got - exact) <= near)
+
+
+def test_count_nan_rows_count_nothing_in_the_tensor_core_form():
+    """A NaN query counts nothing and a NaN item is counted by no query, in
+    the kernel's 3xTF32 arithmetic (the split keeps a NaN a NaN) as in the
+    plain version."""
+    X = torch.from_numpy(_points(200, 5, 9))
+    X[3, 1] = float("nan")
+    X[10, 0] = float("nan")
+    valid = torch.ones(200, dtype=torch.bool)
+    valid[10] = False  # the caller's mask for a NaN row, and one it missed (row 3)
+    got = _count_3xtf32(X, X, valid, 4.0)
+    plain = count.count_below_plain(X, X, valid, 4.0)
+    assert int(got[3]) == 0 and int(got[10]) == 0
+    assert torch.equal(got.to(torch.int32), plain)
+
+
+@pytest.mark.parametrize("eps2", [-1.0, -1e-30, float("nan")])
+def test_a_negative_or_nan_eps2_counts_nothing(eps2):
+    """max(d2, 0) <= eps2 holds for no pair when eps2 < 0 or NaN: the plain
+    version counts nothing, and so does the kernel's form of the criterion
+    (d2 <= eps2 for eps2 >= 0, nothing otherwise)."""
+    X = torch.from_numpy(_points(150, 4, 12))
+    valid = torch.ones(150, dtype=torch.bool)
+    assert int(count.count_below_plain(X, X, valid, eps2).sum()) == 0
+    got = _count_3xtf32(X, X, valid, eps2) if eps2 >= 0 else torch.zeros(150, dtype=torch.int64)
+    assert int(got.sum()) == 0

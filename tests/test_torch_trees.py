@@ -101,12 +101,28 @@ def test_bin_features_match_with_values_on_edges_and_duplicate_edges(monkeypatch
     X[71, :] = np.inf
     want = jax_trees.bin_features(X, edges)
     got = trees.bin_features(torch.from_numpy(X), torch.from_numpy(edges))
-    assert got.dtype == torch.int32
+    assert got.dtype == torch.uint8  # 32 bins: the forest's uint8 ids
     np.testing.assert_array_equal(got.numpy(), want)
     monkeypatch.setattr(trees, "BIN_CHUNK_ELEMS", 2 * X.shape[0])  # two features at a time
     np.testing.assert_array_equal(
         trees.bin_features(torch.from_numpy(X), torch.from_numpy(edges)).numpy(), want
     )
+
+
+@pytest.mark.parametrize("max_bins,dtype", [(2, torch.uint8), (255, torch.uint8),
+                                            (256, torch.uint8), (257, torch.int32),
+                                            (300, torch.int32)])
+def test_bin_features_uint8_up_to_256_bins_int32_above(max_bins, dtype):
+    """uint8 bins at max_bins <= 256 (ids up to 255), int32 above, with the
+    JAX package's values either way."""
+    rng = np.random.default_rng(max_bins)
+    X = rng.normal(size=(20_000, 3)).astype(np.float32)
+    edges = jax_trees.quantile_bin_edges(X, max_bins)
+    got = trees.bin_features(torch.from_numpy(X), torch.from_numpy(edges))
+    want = jax_trees.bin_features(X, edges)
+    assert got.dtype == dtype
+    assert int(got.max()) == max_bins - 1  # the top bin is used, and fits the type
+    np.testing.assert_array_equal(got.numpy().astype(np.int64), want)
 
 
 # --------------------------------------------------------- impurity algebra
@@ -250,6 +266,27 @@ def test_forest_fit_matches(impurity, n_classes, k, bootstrap, rate, replay_scor
     got = trees.forest_fit(torch.from_numpy(X), torch.from_numpy(stats), **kw)
     _assert_heap(got, want, impurity)
     np.testing.assert_array_equal(got["bin_edges"], want["bin_edges"])
+
+
+def test_forest_fit_grows_on_uint8_bins(replay_scores, monkeypatch):
+    """forest_fit hands the level histogram uint8 bins at maxBins <= 256, and
+    its forest is the JAX package's, bit for bit (gini, integer stats)."""
+    X, stats = _class_data(n=1200, seed=15)
+    kw = dict(n_trees=2, max_depth=4, max_bins=32, impurity="gini", feature_subset=6,
+              min_instances=1, min_info_gain=0.0, subsampling_rate=1.0, bootstrap=True, seed=5)
+    want = jax_trees.forest_fit(X, stats, **kw)
+    seen = set()
+    hist = trees.node_bin_histogram
+
+    def spy(Xb, *args):
+        seen.add(Xb.dtype)
+        return hist(Xb, *args)
+
+    monkeypatch.setattr(trees, "node_bin_histogram", spy)
+    replay_scores(5, 2, 4, X.shape[1])
+    got = trees.forest_fit(torch.from_numpy(X), torch.from_numpy(stats), **kw)
+    assert seen == {torch.uint8}
+    _assert_heap(got, want, "gini")
 
 
 @pytest.mark.parametrize(
