@@ -36,7 +36,12 @@ non-zero exit code; nothing is caught):
    1,024-row stage and the 32-row group; zero-stat and -0 rows, node -1;
    s 2, 3, 5), the tensor-core count (nq off the 128-query tile, n off the
    128-item tile, d 1, 7, 31, 33, 257, self pairs, eps2 = 0, every item
-   invalid).
+   invalid), and the Lloyd and assignment kernels' nearest-center tile
+   (csrc/nearest.cuh) in all six Lloyd forms and both assign forms: k 1, 8,
+   9, 20, 24, 25, 81, 257 (one n8 fragment and past it, the 24- and
+   88-center chunks and past them, centers not resident), d 3, 7, 130, 256,
+   513 (whole rows at R 128 to 16, column chunks), n_valid off the plan's R
+   and stage, n 1, 63 and 65 with n_valid 0 and n - 1.
    The bf16-split forms (n_split 1: KMeans under fast_math; n_split 2:
    parity_precision="high"): the Lloyd kernel's unit-weight and weighted forms
    at 1 and 2, assign and the Gram kernels (xtx, xtxy) at 2, at the small
@@ -48,6 +53,8 @@ non-zero exit code; nothing is caught):
    split_data, on which the two-part split falls short of every f32 product by
    3·2^-18 of it (kernel within SPLIT_RTOL_* of the form's exact value, more
    than 10 times that from f32).
+   Phase 2b also holds assign to its plain version at the k-means||
+   candidates' count, k = 81 (81 rows of X), in the f32 and n_split 2 forms.
 3. Main paths, through the estimators, each driven with every kernel's launch
    counter zeroed just before it and read just after; every kernel of a path
    must have run in it:
@@ -118,7 +125,12 @@ non-zero exit code; nothing is caught):
    each beside the earlier design's time (EARLIER_*), with the launch plans
    and the ptxas reports of both kernels; the histogram at every level of
    tree 0 under the wrapper's plan and under one block an SM
-   (HIST_ONE_BLOCK).
+   (HIST_ONE_BLOCK). The six Lloyd forms and assign (k = 20 in both forms,
+   k = 81 in f32 and n_split 2) with their bound at the engine their
+   products take (3xTF32, bf16 passes; nearest_bound), plain version,
+   assign's library figure (cdist and argmin), the earlier design's time
+   (EARLIER_NEAREST_MS), the launch plan, and the ptxas reports of both
+   sources.
 
 The last three lines of standard output are one JSON object with a row per
 kernel, the card's name and power limit as nvidia-smi gives them, and
@@ -191,6 +203,15 @@ HIST_RTOL = 1e-5  # of sum |val| per bin: normal-valued histogram sums in anothe
 EARLIER_HIST_MS = {(2, 1): "28.69-28.94", (2, 32): "55.03-55.28"}
 EARLIER_SEGMENT_MS = "53.54-54.07"
 EARLIER_COUNT_MS = "503.29-507.76"
+# the Lloyd and assignment kernels' earlier design (one 32 x 32 f32-FMA tile;
+# PERF.md section 6; at k = 81 timed once by nearest_times_main on that tile)
+EARLIER_NEAREST_MS = {
+    "lloyd": "19.61-19.95", "lloyd_weighted": "20.63-21.14",
+    "lloyd_bf16": "19.98-20.20", "lloyd_weighted_bf16": "21.13-21.31",
+    "lloyd_high": "31.93-32.33", "lloyd_weighted_high": "33.81-33.99",
+    "assign": "14.12-14.62", "assign_high": "25.53-25.65",
+    "assign_k81": "39.75", "assign_high_k81": "73.54",
+}
 # the histogram plan phase 4 compares with the wrapper's: 160 KB of replicas
 # and 1,024-row stages, one block an SM
 HIST_ONE_BLOCK = {"HIST_BYTES": 160 << 10, "MAX_STAGE_ROWS": 1024}
@@ -1078,6 +1099,7 @@ def phase_small(torch) -> None:
         for q in (0.02, 0.2):  # two eps^2 in one build: a runtime operand
             eps2 = float(torch.quantile(sample.flatten()[:1 << 20], q))
             check_count(Q, X, valid, eps2, f"nq={nq} n={n_items} d={d} eps2={eps2:.4g}")
+    phase_small_nearest_edges(torch)
     phase_small_count_edges(torch)
     phase_small_topk(torch)
     phase_small_narrow(torch)
@@ -1085,6 +1107,57 @@ def phase_small(torch) -> None:
     phase_small_hist(torch)
     phase_small_hist_determinism(torch)
     torch.cuda.synchronize()
+
+
+def phase_small_nearest_edges(torch) -> None:
+    """The nearest-center tile of the Lloyd and assignment kernels
+    (csrc/nearest.cuh) at its edges, in all six Lloyd forms (unit and weighted,
+    n_split 3, 1, 2) and both assign forms (3, 2), each against its plain
+    version (check_lloyd, check_assign): k 1, 8, 9, 20, 24, 25, 81 and 257 (one
+    n8 fragment, one past it, the main path's 20 and its pad 24, one past, the
+    k-means|| candidates, more than an 88-center chunk and, at d = 256,
+    centers that are not resident); d 3, 7, 130, 256 and 513 (off the mma
+    depth, whole rows at R 128 to 16, and column chunks where the centers'
+    parts crowd the ring); n_valid off the plan's R and so off its stage, blocks ending
+    inside a tile; n 1, 63 and 65 around a 64-row tile, n_valid 0 and n - 1."""
+    from spark_rapids_ml_torch.ops import lloyd as lloyd_mod
+    from spark_rapids_ml_torch.ops import select as select_mod
+
+    n = 10_007
+    plans = set()
+    for d in (3, 7, 130, 256, 513):
+        Xh, _ = blobs(n, d, 7, SEED + 11 * d, spread=3.0)
+        X = torch.from_numpy(Xh).cuda()
+        rng = np.random.default_rng(SEED + 12 + d)
+        w = torch.from_numpy(rng.integers(0, 3, n).astype(np.float32)).cuda()  # zeros too
+        for k in (1, 8, 9, 20, 24, 25, 81, 257):
+            C = X[torch.from_numpy(rng.choice(n, k, replace=False)).cuda()].clone()
+            C += 0.01 * torch.randn(C.shape, device="cuda",
+                                    generator=torch.Generator("cuda").manual_seed(k + d))
+            for n_split in (3, 1, 2):
+                g = lloyd_mod._plan(n, k, d, n_split)
+                plans.add((g["R"], g["DC"], g["resident"], g["CK"], g["x_reads"]))
+                nv = n - 123 if (n - 123) % g["R"] else n - 124
+                check_lloyd(X, C, nv, None, f"edge unit n={n} n_valid={nv} d={d} k={k}", n_split)
+                check_lloyd(X, C, n, w, f"edge weighted n={n} d={d} k={k}", n_split)
+            for n_split in (3, 2):
+                g = select_mod._plan(n, k, d, n_split)
+                plans.add((g["R"], g["DC"], g["resident"], g["CK"], g["x_reads"]))
+                check_assign(X, C, f"edge n={n} d={d} k={k}", n_split)
+    for n_t in (1, 63, 65):
+        Xh, _ = blobs(n_t, 7, 3, SEED + n_t, spread=3.0)
+        X = torch.from_numpy(Xh).cuda()
+        w = torch.from_numpy(np.arange(n_t, dtype=np.float32) % 3).cuda()
+        Ch, _ = blobs(9, 7, 3, SEED + 100 + n_t, spread=3.0)  # k = 9 > n at n = 1
+        C = torch.from_numpy(Ch).cuda()
+        for n_split in (3, 1, 2):
+            for nv in sorted({0, n_t - 1, n_t}):
+                check_lloyd(X, C, nv, None, f"edge unit n={n_t} n_valid={nv} d=7", n_split)
+            check_lloyd(X, C, n_t, w, f"edge weighted n={n_t} d=7", n_split)
+        for n_split in (3, 2):
+            check_assign(X, C, f"edge n={n_t} d=7", n_split)
+    log(f"  nearest tile edges: every form against plain; plans (R, DC, resident, CK, "
+        f"x_reads) exercised: {sorted(plans)}")
 
 
 def phase_small_count_edges(torch) -> None:
@@ -1674,6 +1747,102 @@ def bound_tf32x3(nbytes: float, flops: float):
     return 1e3 * max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
 
 
+def nearest_bound(n: int, d: int, k: int, n_split: int, kind: str):
+    """The bound of a Lloyd or assignment form (kind "unit", "weighted" or
+    "assign") at (n, d, k): the larger of its bytes (X, and w, read once; the
+    centers and their norms read once; the sums, counts and inertia or the
+    labels written once) over the HBM rate, and its operations at the engine
+    that takes them: the cross terms 2 n k d in 3xTF32 (three TF32 operations
+    each) for the f32 form, in one or three bf16 passes for n_split 1 and 2;
+    the rest in f32 on the CUDA cores (|x|² 2 n d, the criterion 3 n k, and
+    for Lloyd the update 2 n d a pass of the split, n d more with weights).
+    Returns (ms, "bytes" or "operations", the products' ms alone)."""
+    nbytes = 4.0 * (n * d + k * d + k + (n if kind == "weighted" else 0))
+    nbytes += 4.0 * n if kind == "assign" else 4.0 * (k * d + k + 1)
+    prod = 2.0 * n * k * d
+    t_prod = 3.0 * prod / PEAK_TF32_FLOPS if n_split == 3 else (
+        (1 if n_split == 1 else 3) * prod / PEAK_NARROW_OPS["bfloat16"])
+    rest = 2.0 * n * d + 3.0 * n * k
+    if kind != "assign":
+        rest += 2.0 * n * d * (3 if n_split == 2 else 1) + (n * d if kind == "weighted" else 0)
+    t_ops, t_b = t_prod + rest / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_b, t_ops), ("bytes" if t_b >= t_ops else "operations"), 1e3 * t_prod
+
+
+def time_nearest(torch, X, C, C81, w):
+    """Phase 4 of the Lloyd and assignment kernels at the main shape: every
+    Lloyd form (unit and weighted, n_split 3, 1, 2) and assign (n_split 3, 2)
+    against C (k = 20), and assign against C81 (the k-means|| candidates'
+    count, 81 at k = 20): kernel, plain version, the library figure where one
+    call computes the same function (assign: cdist and argmin), the bound
+    (nearest_bound), the earlier design's time and the launch plan. Returns
+    {name: {ms, plain_ms, bound_ms, bound_by, library_ms}} for the k = 20
+    forms (the JSON rows' names) and "assign_k81" / "assign_high_k81"."""
+    from spark_rapids_ml_torch.ops import _cuda
+    from spark_rapids_ml_torch.ops import lloyd as lloyd_mod
+    from spark_rapids_ml_torch.ops import select as select_mod
+
+    n, d = X.shape
+    out = {}
+    forms = []
+    for ns in (3, 1, 2):
+        forms.append((form_name("lloyd", ns), "unit", ns, C,
+                      lambda ns=ns: lloyd_mod.lloyd_step(X, C, n, None, ns),
+                      lambda ns=ns: lloyd_mod.lloyd_step_plain(X, C, n, None, ns), None))
+        forms.append((form_name("lloyd_weighted", ns), "weighted", ns, C,
+                      lambda ns=ns: lloyd_mod.lloyd_step(X, C, n, w, ns),
+                      lambda ns=ns: lloyd_mod.lloyd_step_plain(X, C, n, w, ns), None))
+    for Ck, tag in ((C, ""), (C81, "_k81")):
+        for ns in (3, 2):
+            forms.append((form_name("assign", ns) + tag, "assign", ns, Ck,
+                          lambda ns=ns, Ck=Ck: select_mod.assign(X, Ck, ns),
+                          lambda ns=ns, Ck=Ck: select_mod.assign_plain(X, Ck, ns),
+                          (lambda Ck=Ck: torch.cdist(X, Ck).argmin(1)) if ns == 3 else None))
+    for name, kind, ns, Ck, kern, plain, lib in forms:
+        k = Ck.shape[0]
+        ms = time_ms(torch, kern)
+        plain_ms = time_ms(torch, plain, 3, 1)
+        lib_ms = None if lib is None else time_ms(torch, lib, 3, 1)
+        b_ms, b_by, prod_ms = nearest_bound(n, d, k, ns, kind)
+        engine = "3xTF32" if ns == 3 else f"{1 if ns == 1 else 3} bf16 pass(es)"
+        mod = select_mod if kind == "assign" else lloyd_mod
+        plan = (mod._plan(n, k, d, ns, _cuda.sm_count(X)) if hasattr(mod, "_plan")
+                else "the earlier tile's")
+        earlier = EARLIER_NEAREST_MS.get(name, "not measured")
+        log(f"  {name} (k={k}): kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library "
+            f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}  bound {b_ms:.4f} ms ({b_by}; "
+            f"products in {engine} {prod_ms:.4f} ms); earlier design {earlier} ms; "
+            f"launch plan {plan}")
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": lib_ms}
+    return out
+
+
+def nearest_times_main() -> int:
+    """Phase 4 of the Lloyd and assignment kernels alone, on the main shape's
+    blob data (centers: the mixture's, moved by N(0, 0.5²); 81 rows of X):
+    python3 -c 'import chip_smoke; chip_smoke.nearest_times_main()'."""
+    import torch
+
+    from spark_rapids_ml_torch.ops import _cuda
+
+    log(f"card: {nvidia_smi()}")
+    reports = _cuda.build(["lloyd", "assign"])
+    for name in ("lloyd", "assign"):
+        for line in ptxas_lines(reports[name]):
+            log(f"  ptxas {name}: {line}")
+    Xh, centers = blobs(N_MAIN, D_MAIN, K_MAIN, SEED)
+    X = torch.from_numpy(Xh).cuda()
+    del Xh
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    C = torch.from_numpy(centers).cuda() + 0.5 * torch.randn(
+        centers.shape, device="cuda", generator=gen)
+    w = torch.randint(0, 3, (N_MAIN,), device="cuda", generator=gen).float()
+    C81 = X[torch.randint(0, N_MAIN, (81,), device="cuda", generator=gen)].clone()
+    time_nearest(torch, X, C, C81, w)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1767,7 +1936,8 @@ def main() -> int:
     errs["lloyd_weighted"] = check_lloyd(X, C, N_MAIN, w, f"weighted n={N_MAIN} k={K_MAIN}")
     errs["assign"] = check_assign(X, C, f"n={N_MAIN} k={K_MAIN}")
     C81 = X[torch.randint(0, N_MAIN, (81,), device="cuda", generator=gen)].clone()
-    check_assign(X, C81, f"n={N_MAIN} k=81")
+    for n_split in (3, 2):  # the k-means|| candidates' count at k = 20
+        check_assign(X, C81, f"n={N_MAIN} k=81", n_split)
     # the bf16-split forms: the main data, then flip_data and split_data
     errs.update(phase_split_forms(torch, X, C, w, N_MAIN, f"n={N_MAIN} k={K_MAIN}", main=True))
     del w
@@ -2194,20 +2364,6 @@ def main() -> int:
             # S2 is symmetric: its d(d+1)/2 distinct entries take one FMA per row
             4.0 * (n * d + d * d + d), n * d * (d + 1.0) + n * d,
         ),
-        "lloyd": (
-            lambda: lloyd_mod.lloyd_step(X, Cm, n), lambda: lloyd_mod.lloyd_step_plain(X, Cm, n),
-            None, 4.0 * (n * d + k * d + k * d + k + 1), 2.0 * n * k * d + 4.0 * n * d,
-        ),
-        "lloyd_weighted": (
-            lambda: lloyd_mod.lloyd_step(X, Cm, n, w_t),
-            lambda: lloyd_mod.lloyd_step_plain(X, Cm, n, w_t),
-            None, 4.0 * (n * d + n + k * d + k * d + k + 1), 2.0 * n * k * d + 5.0 * n * d,
-        ),
-        "assign": (
-            lambda: select_mod.assign(X, Cm), lambda: select_mod.assign_plain(X, Cm),
-            lambda: torch.cdist(X, Cm).argmin(1), 4.0 * (n * d + k * d + n),
-            2.0 * n * k * d + 2.0 * n * d,
-        ),
         "xtxy": (
             lambda: xtwx.xtxy(X, y, n), lambda: xtwx.xtxy_plain(X, y, n),
             # three ATen/cuBLAS calls together: X.T @ X, X.T @ y and X.sum(0)
@@ -2260,24 +2416,20 @@ def main() -> int:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms,
         })
-    # the bf16-split forms: kernel, plain, bound (the bytes, or their part products
-    # at the bf16 tensor-core peak and the rest in f32, whichever is longer)
+    # the Lloyd and assignment forms on the nearest-center tile: kernel, plain,
+    # library, bound at the engine each form's products take (time_nearest)
+    for name, t_row in time_nearest(torch, X, Cm, C81, w_t).items():
+        if name in REPLACES:  # the k = 81 figures are logged, not rows
+            rows.append({
+                "name": name, "route": "cuda", "source": SOURCE[name],
+                "replaces": REPLACES[name], "launches": launches[name],
+                "max_abs_err": errs[name]["max_abs_err"], **t_row,
+            })
+    # the Gram kernels' bf16-split forms: kernel, plain, bound (the bytes, or their
+    # part products at the bf16 tensor-core peak and the rest in f32, whichever
+    # is longer)
     f32_ms = {r["name"]: r["ms"] for r in rows}
     split_specs = {}
-    for ns, passes in ((1, 1), (2, 3)):
-        split_specs[form_name("lloyd", ns)] = (
-            lambda ns=ns: lloyd_mod.lloyd_step(X, Cm, n, None, ns),
-            lambda ns=ns: lloyd_mod.lloyd_step_plain(X, Cm, n, None, ns),
-            4.0 * (n * d + k * d + k * d + k + 1), passes * (2.0 * n * k * d + 2.0 * n * d),
-            2.0 * n * d)
-        split_specs[form_name("lloyd_weighted", ns)] = (
-            lambda ns=ns: lloyd_mod.lloyd_step(X, Cm, n, w_t, ns),
-            lambda ns=ns: lloyd_mod.lloyd_step_plain(X, Cm, n, w_t, ns),
-            4.0 * (n * d + n + k * d + k * d + k + 1), passes * (2.0 * n * k * d + 2.0 * n * d),
-            3.0 * n * d)
-    split_specs["assign_high"] = (
-        lambda: select_mod.assign(X, Cm, 2), lambda: select_mod.assign_plain(X, Cm, 2),
-        4.0 * (n * d + k * d + n), 3 * 2.0 * n * k * d, 2.0 * n * d)
     split_specs["xtx_high"] = (
         lambda: xtwx.xtx(X, n, 2), lambda: xtwx.xtx_plain(X, n, 2),
         4.0 * (n * d + d * d + d), 3 * (n * d * (d + 1.0) + n * d), 0.0)
@@ -2403,7 +2555,7 @@ def main() -> int:
             f"{topk_mod._splits(NQ_KNN10, N_MAIN, kk, sms)[0]}")
     log(f"  xtx/xtxy: {xtwx.SMEM_BYTES} bytes of dynamic shared memory a block, one block "
         f"per SM; {xtwx._chunks(N_MAIN, 3, sms)[1]} row chunks x 3 tiles at d = {D_MAIN}")
-    for name in ("xtx", "topk", "count"):
+    for name in ("xtx", "topk", "count", "lloyd", "assign"):
         for line in ptxas_lines(reports[name]):
             log(f"  ptxas {name}: {line}")
 

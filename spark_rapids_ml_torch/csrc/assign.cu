@@ -4,53 +4,56 @@
 // Replaces: spark_rapids_ml_tpu/ops/pallas_select.py::_assign_kernel (the argmin
 // reduction of the fused distance+select family, reached through fused_assign).
 //
-// What bounds it on the H100: at the main path's shapes (n = 8.4M, d = 256,
-// k = 20 or the ~81 k-means|| candidates) it reads X once, 4 n d bytes, and does
-// 2 n k d f32 operations; at k = 20 that is 2.6 ms of memory against 1.3 ms of
-// f32 FMA at the published peaks, so it is bound by bytes, and by operations
-// from k of about 40 up.
+// What bounds it on the H100: at the main path's shapes (n = 8.4M, d = 256) it
+// reads X once, 4 n d bytes (2.57 ms with the labels), and does 2 n k d
+// operations for the cross terms: at k = 20 (the summaries, the transform)
+// 1.3 ms of f32 FMA or 0.52 ms in 3xTF32; at k = 81 (k-means||'s candidates,
+// 1 + 2 k initSteps, in the init weighting) 5.19 ms of f32 FMA, twice the
+// bytes, and 2.11 ms in 3xTF32, under them. On the tensor cores it is bound by
+// bytes at both.
 //
-// Design: no (n, k) distance matrix is ever written. Rows stream through the
-// shared nearest_tile (nearest.cuh): a row tile is staged once per center chunk
-// and the running argmin closes in registers and shuffles. Centers stage through
-// shared memory in (32 x 32) tiles, so any (k, d) runs. The products are f32 FMA
-// on the CUDA cores, the counterpart of the TPU kernel's full-f32 (HIGHEST)
-// bf16-split passes; no TF32. Under parity_precision "high" (n_split 2, as the
-// TPU kernel's _assign_n_split gives it) each product is the two-part bf16
-// split, three FMA of exact part products (nearest.cuh, bf16split.cuh): 3.9 ms
-// of FMA at the main shape, near the bytes.
+// Design: no (n, k) distance matrix is ever written. Rows stream once through
+// the nearest-center tile of nearest.cuh (a cp.async ring, the centers
+// resident in shared memory and split once a block, 3xTF32 mma.sync for the
+// f32 form, the counterpart of the TPU kernel's full-f32 (HIGHEST) passes, or
+// under parity_precision "high" (n_split 2, as the TPU kernel's
+// _assign_n_split gives it) three bf16 mma.sync passes of exact part products;
+// the argmin on the fragments and the labels written once). With one center
+// chunk the plan takes 128-row tiles, which spread each tile's fixed cost
+// (the ring's barrier, the warps' tree, the argmin) over twice the rows of a
+// 64-row tile of whole rows, in stages of 128 columns at k = 20 and, where the
+// centers' parts crowd the ring (176 KB of TF32 parts at k = 81 in f32), of 64
+// or 32 columns; X is still read once.
 
 #include "nearest.cuh"
 
-template <int NSPLIT>
-__global__ void __launch_bounds__(NR_THREADS)
-assign_kernel(const float* __restrict__ X, int64_t n, int d,
-              const float* __restrict__ C, const float* __restrict__ c2, int k,
-              int* __restrict__ labels) {
-  __shared__ NearestSmemT<NSPLIT> sm;
-  for (int64_t row0 = (int64_t)blockIdx.x * NR_ROWS; row0 < n;
-       row0 += (int64_t)gridDim.x * NR_ROWS) {
-    nearest_tile<true, NSPLIT>(X, row0, n, d, C, c2, k, sm);
-    const int64_t row = row0 + threadIdx.x;
-    if (threadIdx.x < NR_ROWS && row < n) labels[row] = sm.best_i[threadIdx.x];
-  }
-}
-
-// n_split is 3 (f32) or 2 (the bf16 split). Launches on `stream`; allocates
-// nothing, does not synchronise. Returns cudaGetLastError() (0 on success).
-extern "C" int srml_assign(const void* X, long long n, int d, const void* C,
-                           const void* c2, int k, void* labels, int n_blocks,
-                           int n_split, void* stream) {
-  if (n_split != 3 && n_split != 2) return (int)cudaErrorInvalidValue;
-  if (n > 0) {
-    cudaStream_t s = (cudaStream_t)stream;
-    if (n_split == 3) {
-      assign_kernel<3><<<n_blocks, NR_THREADS, 0, s>>>(
-          (const float*)X, (int64_t)n, d, (const float*)C, (const float*)c2, k, (int*)labels);
-    } else {
-      assign_kernel<2><<<n_blocks, NR_THREADS, 0, s>>>(
-          (const float*)X, (int64_t)n, d, (const float*)C, (const float*)c2, k, (int*)labels);
-    }
-  }
-  return (int)cudaGetLastError();
+// The plan (R, S, DC, resident, CK, rows_per_block, n_blocks, smem) is
+// ops/select.py::_plan's, checked against nearest.cuh's layout. n_split is 3
+// (f32) or 2 (the bf16 split). Launches on `stream`; allocates nothing, does
+// not synchronise. Returns cudaGetLastError() (0 on success),
+// cudaErrorInvalidValue for a plan the kernel does not take.
+extern "C" int srml_assign(const void* X, long long n, int d, const void* C, const void* c2,
+                           int k, void* labels, int R, int S, int DC, int resident, int CK,
+                           long long rows_per_block, int n_blocks, long long smem, int n_split,
+                           void* stream) {
+  const NtPlan plan{R, S, DC, resident, CK, 0, rows_per_block};
+  if ((n_split != 3 && n_split != 2) || n_blocks < 1 || n < 0 ||
+      !nt_plan_check(n_split, plan, k, d, false, smem) ||
+      (long long)n_blocks * rows_per_block < n)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaGetLastError();
+  NtArgs args{};
+  args.X = (const float*)X;
+  args.n_rows = n;
+  args.d = d;
+  args.C = (const float*)C;
+  args.c2 = (const float*)c2;
+  args.k = k;
+  args.labels = (int*)labels;
+  args.plan = plan;
+  args.vec16 = d % 4 == 0 && (uintptr_t)X % 16 == 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = n_split == 3 ? nt_launch<3, false>(args, n_blocks, (size_t)smem, s)
+                                 : nt_launch<2, false>(args, n_blocks, (size_t)smem, s);
+  return (int)err;
 }

@@ -37,7 +37,6 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent.parent / "build" / "torch_kernels"
 SOURCES = ("xtx", "lloyd", "assign", "count", "topk", "hist")
-NR_ROWS = 32  # rows per tile of nearest_tile, csrc/nearest.cuh
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -52,8 +51,10 @@ ENTRIES = {
     "xtx": ("xtx", "srml_xtx", [_P, _L, _I, _L, _I, _P, _P, _P, _P, _I, _P]),
     "xtxy": ("xtx", "srml_xtxy",
              [_P, _P, _L, _I, _L, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P]),
-    "lloyd": ("lloyd", "srml_lloyd_step", [_P, _P, _L, _I, _P, _P, _I, _L, _I, _P, _P, _I, _P]),
-    "assign": ("assign", "srml_assign", [_P, _L, _I, _P, _P, _I, _P, _I, _I, _P]),
+    "lloyd": ("lloyd", "srml_lloyd_step",
+              [_P, _P, _L, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _L, _I, _L, _P, _P, _I, _P]),
+    "assign": ("assign", "srml_assign",
+               [_P, _L, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _L, _I, _L, _I, _P]),
     "count": ("count", "srml_count", [_P, _P, _L, _I, _P, _P, _I, _F, _P, _P]),
     "topk": ("topk", "srml_topk",
              [_P, _P, _L, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P]),

@@ -18,7 +18,8 @@
 #
 # `lloyd_step` launches the CUDA kernel csrc/lloyd.cu for tensors on the card and
 # runs `lloyd_step_plain`, the same function in plain PyTorch, for tensors on the
-# CPU. The kernel's design and its bound on the H100 are in the source's header.
+# CPU. The kernel's design and its bound on the H100 are in the source's header
+# and in csrc/nearest.cuh; `_plan` picks its launch.
 #
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import torch
 from ..utils import span
 from . import _cuda
 from ._precision import F32, dot_multipass
+from .select import nearest_plan
 
 
 def lloyd_step_plain(
@@ -53,6 +55,17 @@ def lloyd_step_plain(
     x2 = torch.sum(Xm * Xm, dim=1)
     inertia = torch.sum(wv * torch.clamp(x2 + min_part, min=0.0))
     return sums, counts, inertia
+
+
+def _plan(n_valid: int, k: int, d: int, n_split: int = F32, sms: int = 132) -> dict:
+    """The Lloyd kernel's launch (csrc/lloyd.cu srml_lloyd_step):
+    ops/select.py::nearest_plan for the n_valid rows, the block's sums in
+    registers with one chunk of 24 centers and whole rows of at most 256
+    columns (the main path), else in shared memory where they fit. With whole
+    rows in a stage the update reads them there, and X is read from device
+    memory once; past about d = 512 at k = 20 (f32) the rows come in column
+    chunks and the update reads them again (x_reads 2)."""
+    return nearest_plan(n_valid, k, d, n_split, True, sms)
 
 
 # the launch counter of each form: (weighted, n_split) -> attribute of lloyd_step
@@ -87,18 +100,18 @@ def lloyd_step(
         tensors += (w,)
     if _cuda.device_kind(*tensors) == "cpu":
         return lloyd_step_plain(X, centers, n_valid, w, n_split)
+    g = _plan(n_valid, k, d, n_split, _cuda.sm_count(X))
     fn = _cuda.entry("lloyd")
     c2 = torch.sum(centers * centers, dim=1)
-    n_blocks = max(1, min(-(-n_valid // _cuda.NR_ROWS), 4 * _cuda.sm_count(X)))
-    rows = -(-max(n_valid, 1) // n_blocks)
-    rows = -(-rows // _cuda.NR_ROWS) * _cuda.NR_ROWS
     stride = k * d + k + 1
-    part = torch.empty((n_blocks, stride), dtype=torch.float32, device=X.device)
+    part = torch.empty((g["blocks"], stride), dtype=torch.float32, device=X.device)
     out = torch.empty((stride,), dtype=torch.float32, device=X.device)
     _cuda.check(
         fn(X.data_ptr(), None if w is None else w.data_ptr(), n_valid, d,
-           centers.data_ptr(), c2.data_ptr(), k, rows, n_blocks, part.data_ptr(),
-           out.data_ptr(), n_split, _cuda.stream_of(X)),
+           centers.data_ptr(), c2.data_ptr(), k, g["R"], g["S"], g["DC"],
+           int(g["resident"]), g["CK"], int(g["sums_smem"]), g["rows_per_block"],
+           g["blocks"], g["smem"], part.data_ptr(), out.data_ptr(), n_split,
+           _cuda.stream_of(X)),
         "lloyd kernel",
     )
     _cuda.count_launch(lloyd_step, COUNTERS[(w is not None, n_split)])

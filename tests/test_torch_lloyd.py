@@ -28,6 +28,14 @@ from spark_rapids_ml_tpu.ops.pallas_kmeans import (
 )
 from spark_rapids_ml_torch.ops import lloyd
 from spark_rapids_ml_torch.ops._precision import dot_multipass
+from tests.test_torch_select import (
+    _check_plan,
+    _criterion_64,
+    _cross_3xtf32,
+    _near_blobs,
+    _near_ties,
+    _plan_ns,
+)
 
 HIGHEST = jax.lax.Precision.HIGHEST
 HIGH = jax.lax.Precision.HIGH
@@ -229,3 +237,108 @@ def test_cpu_wrapper_counts_no_launch():
     before = lloyd.lloyd_step.launches
     lloyd.lloyd_step(torch.from_numpy(X), torch.from_numpy(init), 50)
     assert lloyd.lloyd_step.launches == before
+
+
+# ------------------------------------------- the nearest-center tile (csrc/nearest.cuh)
+#
+# The Lloyd kernel's f32 form on the tile: the cross terms in 3xTF32
+# (tests/test_torch_select.py::_cross_3xtf32), the update in f32. Held to f64
+# as chip_smoke.py's check_lloyd holds the kernel to plain: counts within the
+# rows of the near ties (TIE_RTOL), sums within 1e-5 of max |sums| plus the
+# rows that moved, inertia within 1e-5; and to the JAX kernels in interpret
+# mode on data with no near tie (_check_step).
+
+
+def _lloyd_3xtf32(X, C, n_valid, w=None):
+    Xt, Ct = torch.from_numpy(X), torch.from_numpy(C)
+    valid = torch.arange(X.shape[0]) < n_valid
+    Xm = torch.where(valid[:, None], Xt, 0.0)
+    wv = valid.float() if w is None else torch.where(valid, torch.from_numpy(w), 0.0)
+    part = (Ct * Ct).sum(1)[None, :] - 2.0 * _cross_3xtf32(Xm, Ct)
+    lab = torch.argmin(part, dim=1)
+    onehot = torch.nn.functional.one_hot(lab, C.shape[0]).float() * wv[:, None]
+    x2 = (Xm * Xm).sum(1)
+    inertia = (wv * torch.clamp(x2 + part.gather(1, lab[:, None])[:, 0], min=0.0)).sum()
+    return onehot.T @ Xm, onehot.sum(0), inertia
+
+
+def _lloyd_64(X, C, n_valid, w=None):
+    valid = np.arange(X.shape[0]) < n_valid
+    wv = valid.astype(np.float64) if w is None else np.where(valid, w, 0.0)
+    Xm = np.where(valid[:, None], X, 0).astype(np.float64)
+    crit = _criterion_64(Xm, C, False)
+    lab = np.argmin(crit, axis=1)
+    onehot = np.eye(C.shape[0])[lab] * wv[:, None]
+    x2 = (Xm * Xm).sum(1)
+    inertia = (wv * np.maximum(x2 + crit[np.arange(len(lab)), lab], 0)).sum()
+    return onehot.T @ Xm, onehot.sum(0), inertia, wv
+
+
+@pytest.mark.parametrize("n, n_valid, d, k, seed", [(1500, 1441, 130, 20, 0), (1000, 1000, 256, 81, 1),
+                                                    (777, 700, 7, 9, 2), (600, 600, 33, 25, 3)])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_3xtf32_lloyd_step_agrees_with_f64_within_near_ties(n, n_valid, d, k, seed, weighted):
+    X, C = _near_blobs(n, d, k, seed, spread=2.0)
+    w = np.random.default_rng(seed).integers(0, 3, n).astype(np.float32) if weighted else None
+    if weighted:
+        n_valid = n
+    s_e, c_e, i_e = _lloyd_3xtf32(X, C, n_valid, w)
+    s_64, c_64, i_64, wv = _lloyd_64(X, C, n_valid, w)
+    ties = _near_ties(np.where(wv[:, None] > 0, X, 0).astype(np.float32), C, False) & (wv > 0)
+    count_diff = np.abs(c_e.double().numpy() - c_64).sum()
+    assert count_diff <= 2.0 * wv.max() * ties.sum()
+    tie_mass = (np.abs(X[ties]) * wv[ties, None]).sum(0).max() if ties.any() else 0.0
+    tol = 1e-5 * np.abs(s_64).max() + (2.0 * tie_mass if count_diff else 0.0)
+    assert np.abs(s_e.double().numpy() - s_64).max() <= tol
+    assert float(i_e) == pytest.approx(i_64, rel=1e-5)
+
+
+@pytest.mark.parametrize("n, n_valid, d, k", [(600, 530, 130, 20), (513, 500, 256, 81), (777, 777, 3, 1)])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_3xtf32_lloyd_step_matches_the_pallas_kernels_without_near_ties(n, n_valid, d, k, weighted):
+    X, init = _blobs(n, d, k, seed=d + k)
+    w = np.random.default_rng(k).integers(0, 3, n).astype(np.float32) if weighted else None
+    if weighted:
+        n_valid = n
+    valid = (np.arange(n) < n_valid)[:, None]
+    assert not _near_ties(np.where(valid, X, 0).astype(np.float32), init, False).any()
+    if weighted:
+        want = lloyd_step_pallas(jnp.asarray(X), jnp.asarray(w), jnp.asarray(init), interpret=True,
+                                 precision=HIGHEST)
+    else:
+        want = lloyd_step_pallas_masked(jnp.asarray(X), n_valid, jnp.asarray(init), interpret=True,
+                                        precision=HIGHEST)
+    _check_step(_lloyd_3xtf32(X, init, n_valid, w), want)
+
+
+@pytest.mark.parametrize("k", (1, 8, 9, 20, 24, 25, 81, 257, 1000))
+@pytest.mark.parametrize("d", (1, 3, 7, 130, 256, 257, 513, 1024))
+def test_lloyd_plan_covers_every_row_once_and_fits(k, d):
+    """ops/lloyd.py::_plan over the tile's edges (tests/test_torch_select.py::
+    _check_plan): with whole rows in a stage the update reads them there and X
+    is read once; the sums sit in registers exactly for one chunk of 24
+    centers and whole rows of at most 256 columns, else in shared memory
+    where k d fits beside the tile."""
+    for n_split in (3, 1, 2):
+        R = lloyd._plan(10_007, k, d, n_split)["R"]
+        for n in _plan_ns(R):
+            g = lloyd._plan(n, k, d, n_split)
+            _check_plan(g, n, k, d, n_split, True)
+            in_regs = g["CK"] == 24 and k <= 24 and g["whole"] and d <= 256
+            assert (g["sums"] == "registers") == in_regs
+            assert not (in_regs and g["sums_smem"])
+
+
+def test_lloyd_plan_at_the_main_shape_and_past_the_whole_rows():
+    """k = 20, d = 256: whole 64-row tiles, the sums in registers, X read
+    once, in every form; d = 513 keeps whole rows (R = 16); at d = 1024 the
+    f32 form takes the rows in column chunks, and the update reads them again
+    (x_reads 2)."""
+    for n_split in (3, 1, 2):
+        g = lloyd._plan(8_388_608, 20, 256, n_split)
+        assert (g["R"], g["whole"], g["sums"], g["x_reads"], g["blocks"]) == (
+            64, True, "registers", 1, 132)
+    g = lloyd._plan(10_007, 20, 513, 3)
+    assert (g["R"], g["whole"], g["x_reads"]) == (16, True, 1)
+    g = lloyd._plan(10_007, 20, 1024, 3)
+    assert (g["whole"], g["x_reads"]) == (False, 2)
