@@ -152,10 +152,30 @@ non-zero exit code; nothing is caught):
      over all of X by check_lloyd, and the 2-rank fit to the single-process
      lloyd_fit from the same centers (n_iter equal, centers within 1e-4 of
      the data's rms, sizes up to near ties); each rank launched xtx, xtxy,
-     the Lloyd forms and (in-core KMeans) assign; and an empty-rank case at
-     MP_SMALL (rank 1 with no rows) equal bit for bit to the single-process
-     models. A rank that fails or outruns MP_TIMEOUT fails the run after the
-     other rank is killed.
+     the Lloyd forms and (in-core KMeans) assign. Then kNN on the same ranks
+     (rank_knn, check_mp_knn): NearestNeighbors on each rank's share of the
+     main X (default ids, the global row numbers) searched by the all-gather
+     route at both kNN traffics (the bench's queries all on rank 0, the
+     4,096 split 60/40) in f32, bf16 and int8, f32 bit-equal to phase 3's
+     searches, the narrow forms' distances the exact re-rank of their ids
+     bit for bit, none above phase 3's, recall@k at KNN_RECALL_GATE; and the
+     ring through the estimator, X's first MP_RING_ITEMS rows against the
+     next MP_RING_QUERIES, bit-equal to the single-process search and to
+     exact_knn_distributed on the same ranks; each search's collectives and
+     each rank's top-k launches. An empty-rank case at MP_SMALL (rank 1 with
+     no rows) equal bit for bit to the single-process models, both forests
+     and a kNN search among them. The forests' ranks run inside
+     phase_forest (phase_multiprocess_forest): both estimators at
+     MP_RF_TREES trees (cut from RF_TREES for the time limit) on each rank's
+     share of the forest rows, written once in row order and read through an
+     Arrow view; the same bits on both ranks, the classifier equal to phase
+     3's first MP_RF_TREES trees bit for bit, the regressor split alike at
+     every node whose best gain is separated from its second best
+     (separated_structure) and its predictions under phase 3's regressor
+     rule; RF_DEPTH histogram launches a tree on each rank. A rank that
+     fails or outruns MP_TIMEOUT fails the run after the other rank is
+     killed; every rank logs each call's seconds, collectives, bytes and
+     spans.
    Every phase sets the six streaming keys (pin_in_core: streaming and the
    cache off, for the phases that do not stream), so none depends on a
    default.
@@ -202,6 +222,7 @@ from __future__ import annotations
 
 import gc
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1539,6 +1560,131 @@ def first_trees(attrs: dict, k: int) -> dict:
     return {key: attrs[key][:k] for key in keys}
 
 
+RF_GAIN_TOL = 1e-5  # tests/test_torch_random_forest.py's GAIN_TOL: a near tie
+RF_MP_SAMPLE_ROWS = 1 << 20  # rows of the forest data whose predictions phase 3m compares
+
+
+def separated_structure(a, b, top2, n_trees: int, depth: int) -> tuple:
+    """The structure half of tests/test_torch_random_forest.py's rule for
+    real-valued stats, on the heap arrays of forests a and b: wherever a node
+    is reached in both and its best gain in a (`top2`, each level's two best
+    gains a node, in fit order) is more than RF_GAIN_TOL above its second best
+    and 0, the trees split it alike. Returns (the nodes compared, the largest
+    value difference at a reached node, that node's weight in a)."""
+    it = iter(top2)
+    sep = set()
+    for i in range(n_trees):
+        for t in range(depth):
+            top = next(it)
+            for w in range(2**t):
+                if top[w, 0] > RF_GAIN_TOL and top[w, 0] - top[w, 1] > RF_GAIN_TOL:
+                    sep.add((i, 2**t + w))
+    compared, worst, worst_w = 0, 0.0, 0.0
+    for i in range(n_trees):
+        todo = [1]
+        while todo:
+            slot = todo.pop()
+            diff = float(np.abs(a["value"][i][slot] - b["value"][i][slot]).max())
+            if diff > worst:
+                worst, worst_w = diff, float(a["node_weight"][i][slot])
+            if (i, slot) not in sep or a["is_leaf"][i][slot]:
+                continue
+            compared += 1
+            require(not b["is_leaf"][i][slot] and a["feature"][i][slot] == b["feature"][i][slot]
+                    and a["threshold"][i][slot] == b["threshold"][i][slot],
+                    f"tree {i} slot {slot}: the split differs at a separated node")
+            todo += [2 * slot, 2 * slot + 1]
+    return compared, worst, worst_w
+
+
+def forest_moved(torch, workdir, a, b) -> float:
+    """The share of the forest data's first RF_MP_SAMPLE_ROWS rows whose
+    prediction by forest a differs from forest b's by more than RF_REG_RTOL of
+    b's largest |prediction| (phase 3's regressor rule)."""
+    from spark_rapids_ml_torch.ops.trees import predict_forest
+
+    from spark_rapids_ml_torch import config as torch_config
+
+    dev = torch.device(str(torch_config.get("device")))
+    Xs = np.load(workdir / "rf_X.npy", mmap_mode="r")[:RF_MP_SAMPLE_ROWS]
+    Xs = torch.from_numpy(np.array(Xs)).to(dev)
+    preds = [predict_forest(Xs, *(torch.tensor(f[k], device=dev) for k in
+                                  ("feature", "threshold", "is_leaf", "value")), RF_DEPTH)[:, 0]
+             for f in (a, b)]
+    return float(((preds[0] - preds[1]).abs() > RF_REG_RTOL * preds[1].abs().max()).double().mean())
+
+
+def phase_multiprocess_forest(torch, workdir, clf_attrs, reg_attrs, launches, device) -> None:
+    """Phase 3m's forests: RandomForestClassifier and RandomForestRegressor at
+    MP_RF_TREES trees (cut from RF_TREES for the time limit), depth RF_DEPTH,
+    RF_BINS bins, on two rank processes each fitting its 60/40 share of the
+    forest data that phase_forest wrote to WORKDIR/rf_*.npy, both ranks on
+    one card over gloo (and one card a rank over NCCL where there are two).
+    Gates: each forest the same bits on both ranks; the classifier the first
+    MP_RF_TREES trees of phase 3's single-process fit bit for bit; the
+    regressor's nodes split alike wherever the rule of
+    tests/test_torch_random_forest.py compares structure
+    (separated_structure), and its predictions under phase 3's regressor rule
+    (forest_moved: RF_REG_RTOL, RF_REG_MOVED), since the rule's 1e-5 on
+    values is below the f32 floor of the carried child stats at this size
+    (eps32 x the root's sums over a small node's weight); each rank launched
+    the level histogram once a level of each tree. The ranks' launches are
+    added to `launches`."""
+    on_card = device == "cuda"
+    runs = [("gloo, one card", "0" if on_card else None)]
+    if on_card and torch.cuda.device_count() >= MP_WORLD:
+        runs.append(("NCCL, one card a rank", None))
+    log(f"phase 3m (forests): {MP_WORLD} rank processes, {MP_RF_TREES} trees (cut from "
+        f"{RF_TREES} for the time limit), depth {RF_DEPTH}, {RF_BINS} bins, rows "
+        f"{MP_SHARE:.0%} / {1 - MP_SHARE:.0%}")
+    for run, visible in runs:
+        t0 = time.perf_counter()
+        ranks = run_ranks(workdir, MP_WORLD, device, visible, job="forest")
+        log(f"  run {run}: {time.perf_counter() - t0:.1f} s with the ranks' start")
+        for res in ranks:
+            f = res["forest"]
+            log(f"    rank {res['rank']}: rows [{f['rows'][0]}, {f['rows'][1]}), backend "
+                f"{res['backend']}, {res['device']} ({res['card']})")
+            for label in ("RF classifier", "RF regressor"):
+                log_rank_call(res["rank"], label, f[label])
+                hist = f[label]["launches"]["node_bin_hist"]
+                if on_card:
+                    require(hist == MP_RF_TREES * RF_DEPTH,
+                            f"{run}: rank {res['rank']} {label}: {hist} histogram launches")
+                require(f[label]["comm"]["comm.collective_ops"]
+                        == 3 + (2 if label == "RF classifier" else 0) + MP_RF_TREES * RF_DEPTH,
+                        f"{run}: rank {res['rank']} {label}: collectives {f[label]['comm']}")
+                if launches is not None:
+                    for name, c in f[label]["launches"].items():
+                        launches[name] += c
+        for label, ref in (("RF classifier", clf_attrs), ("RF regressor", reg_attrs)):
+            got = [res["forest"][label]["attrs"] for res in ranks]
+            require(all(bits_equal(g, got[0]) for g in got[1:]),
+                    f"{run}: the {label} forests differ across the ranks")
+            want = first_trees(ref, MP_RF_TREES)
+            require(bits_equal(got[0]["bin_edges"], ref["bin_edges"]),
+                    f"{run}: the {label} bin edges differ from the single-process fit's")
+            if label == "RF classifier":
+                require(bits_equal(first_trees(got[0], MP_RF_TREES), want),
+                        f"{run}: the 2-rank classifier differs from the single-process fit's "
+                        f"first {MP_RF_TREES} trees")
+                log(f"  {run}: RF classifier: the same bits on both ranks and the single-process "
+                    f"fit's first {MP_RF_TREES} trees bit for bit (bin edges too)")
+            else:
+                compared, worst, worst_w = separated_structure(
+                    got[0], want, ranks[0]["forest"][label]["top2"], MP_RF_TREES, RF_DEPTH)
+                moved = forest_moved(torch, workdir, got[0], want)
+                same = {k: bool(np.array_equal(v, want[k]))
+                        for k, v in first_trees(got[0], MP_RF_TREES).items()}
+                log(f"  {run}: RF regressor: the same bits on both ranks; against the "
+                    f"single-process fit's first {MP_RF_TREES} trees: arrays equal {same}, "
+                    f"{compared} separated nodes split alike; values at most {worst:.4e} apart "
+                    f"(at a node of weight {worst_w:.6g}); rows of the first "
+                    f"{RF_MP_SAMPLE_ROWS} whose prediction differs by more than {RF_REG_RTOL} of "
+                    f"max |prediction|: {100 * moved:.4f}% (allowed {100 * RF_REG_MOVED:g}%)")
+                require(moved <= RF_REG_MOVED, f"{run}: regressor: {moved} of rows moved")
+
+
 def phase_forest(torch, run_path, stages, path_counts, launches, reports) -> list:
     """RandomForestClassifier and RandomForestRegressor at N_RF x D_RF: the
     histogram kernels against plain at the main shape (2b), both estimators'
@@ -1562,10 +1708,22 @@ def phase_forest(torch, run_path, stages, path_counts, launches, reports) -> lis
     df = pd.DataFrame(Xh, columns=cols)
     t3 = time.perf_counter()
     X = torch.from_numpy(Xh).cuda().contiguous()
-    del Xh
+    # phase 3m's ranks memory-map the rows: X in row order, written by chunks
+    workdir = mp_workdir("phase3m_forest")
+    t4 = time.perf_counter()
+    Xf = np.lib.format.open_memmap(workdir / "rf_X.npy", mode="w+", dtype=np.float32,
+                                   shape=Xh.shape)
+    for r0 in range(0, N_RF, RF_CHUNK):
+        Xf[r0 : r0 + RF_CHUNK] = Xh[r0 : r0 + RF_CHUNK]
+    Xf.flush()
+    del Xf, Xh
+    np.save(workdir / "rf_ycls.npy", ycls)
+    np.save(workdir / "rf_yreg.npy", yreg)
+    log(f"  the rows and both labels written for phase 3m's ranks in "
+        f"{time.perf_counter() - t4:.1f} s")
     log(f"  data {tuple(X.shape)} f32 in {t1 - t0:.1f} s, the regression label in "
         f"{t2 - t1:.1f} s, a frame of {D_RF} scalar columns in {t3 - t2:.1f} s, X on the "
-        f"card in {time.perf_counter() - t3:.1f} s")
+        f"card in {t4 - t3:.1f} s")
     y_cls = torch.from_numpy(ycls).cuda()
     n = N_RF
     edges = torch.from_numpy(trees.quantile_bin_edges(X, RF_BINS, seed=SEED)).cuda()
@@ -1733,6 +1891,12 @@ def phase_forest(torch, run_path, stages, path_counts, launches, reports) -> lis
     require(abs(rev.rootMeanSquaredError - rmse_direct) <= 1e-6 * rmse_direct, "regressor rmse")
     require(rev.rootMeanSquaredError < ystd, "regressor does no better than the label mean")
     del y_dev, rpred, df, X
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        phase_multiprocess_forest(torch, workdir, a, ra, launches, "cuda")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
 
     pc = path_counts
     for label in ("RF classifier fit", "RF regressor fit"):
@@ -2399,13 +2563,65 @@ MP_KERNELS = {"PCA": ("xtx",), "KMeans": ("lloyd",), "KMeans, weighted": ("lloyd
 MP_LR_RTOL = 1e-4
 MP_LR_SINGLE = {("in-core", "LinReg OLS"): "ols", ("streamed", "LinReg OLS"): "ols_streamed",
                 ("in-core", "LinReg elastic net"): "en", ("streamed", "LinReg elastic net"): "en"}
+# kNN across the ranks: the all-gather route at phase 3's two traffics (the
+# bench's queries all on rank 0, the 4,096 split 60/40) on the main X, and the
+# ring through the estimator on X's first MP_RING_ITEMS rows against the next
+# MP_RING_QUERIES rows (the estimator's ring threshold), both 60/40
+MP_RING_ITEMS = 1 << 20
+MP_RING_QUERIES = 65_536
+MP_RING_F64_QUERIES = 512  # of the ring's single-process search's queries held to f64
+MP_KNN_SMALL_QUERIES = 100  # the empty-rank case's queries: its X's first rows
+# the forests across the ranks: phase 3's forest data 60/40, at RF_DEPTH and
+# RF_BINS, with numTrees cut from RF_TREES to MP_RF_TREES for the time limit;
+# held to the first MP_RF_TREES trees of phase 3's single-process fits
+MP_RF_TREES = 4
+
+
+def knn10_queries(Xh, true_centers):
+    """The k = 10 search's NQ_KNN10 queries: rows of X (the first half, each
+    its own nearest item) and fresh rows of X's mixture. Returns (queries,
+    the rows of X among them)."""
+    rng = np.random.default_rng(SEED + 7)
+    self_rows = rng.choice(len(Xh), NQ_KNN10 // 2, replace=False)
+    fresh = true_centers[rng.integers(0, K_MAIN, NQ_KNN10 - NQ_KNN10 // 2)]
+    fresh += rng.standard_normal(fresh.shape, dtype=np.float32)
+    return np.concatenate([Xh[self_rows], fresh]), self_rows
+
+
+def knn_arrays(knn_df):
+    """(ids (nq, k) int64, distances (nq, k) f32) of a kneighbors frame;
+    (0, 0) arrays for a frame with no rows."""
+    if not len(knn_df):
+        return np.zeros((0, 0), np.int64), np.zeros((0, 0), np.float32)
+    return (np.stack(knn_df["indices"].to_numpy()).astype(np.int64),
+            np.stack(knn_df["distances"].to_numpy()).astype(np.float32))
+
+
+def knn_single_refs(Xh, Q10) -> dict:
+    """Phase 3's single-process searches that phase 3m is held to, made anew
+    (phase 3m alone): (traffic, form) -> (ids, distances)."""
+    from spark_rapids_ml_torch import config as torch_config
+    from spark_rapids_ml_torch.knn import NearestNeighbors
+
+    nn = NearestNeighbors(k=K_KNN, inputCol="features").fit(Xh)
+    out = {}
+    for form in ("float32",) + KNN_FORMS:
+        torch_config.set("knn_precision", form)
+        try:
+            for tag, k, Q in (("bench", K_KNN, Xh[:NQ_KNN]), ("k=10", K_KNN10, Q10)):
+                nn.setK(k)
+                out[(tag, form)] = knn_arrays(nn.kneighbors(Q)[2])
+        finally:
+            torch_config.unset("knn_precision")
+    return out
 
 
 def multiprocess_main() -> int:
     """Phase 3m alone on the card, with the single-process fits it is held to
     made first (the build, the main X, PCA in-core and streamed,
     LinearRegression OLS in-core and streamed and elastic net, the f64
-    LinearRegression references; a few minutes):
+    LinearRegression references, the kNN searches in every form; a few
+    minutes; not the forests, which phase_forest runs with its data):
     `python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.multiprocess_main())'`."""
     import torch
 
@@ -2417,7 +2633,7 @@ def multiprocess_main() -> int:
     require(torch.cuda.is_available(), "phase 3m needs a CUDA card")
     log(f"card: {nvidia_smi()}; {torch.cuda.device_count()} card(s)")
     _cuda.build()
-    Xh, _ = blobs(N_MAIN, D_MAIN, K_MAIN, SEED)
+    Xh, true_centers = blobs(N_MAIN, D_MAIN, K_MAIN, SEED)
     yh = regression_label(Xh, SEED)
     w_h = np.random.default_rng(SEED + 2).uniform(0.5, 2.0, N_MAIN).astype(np.float32)
     X, y = torch.from_numpy(Xh).cuda(), torch.from_numpy(yh).cuda()
@@ -2433,10 +2649,11 @@ def multiprocess_main() -> int:
     del frame
     _, beta64, en64 = linreg_f64(torch, X, y)
     del y
+    Q10, _ = knn10_queries(Xh, true_centers)
     phase_multiprocess(torch, Xh, yh, w_h, X, {
         "pca": pca, "pca_streamed": pca_s, "beta64": beta64.cpu().numpy(),
         "en64": en64["coefficients"], "ols": ols.coefficients, "en": en.coefficients,
-        "ols_streamed": ols_s.coefficients})
+        "ols_streamed": ols_s.coefficients, "q10": Q10, "knn": knn_single_refs(Xh, Q10)})
     log("phase 3m passed")
     return 0
 
@@ -2508,26 +2725,157 @@ def labelled_input(Xl, yl, wl):
 
 def mp_small_data():
     """The empty-rank case's data, the same on every process: blobs of
-    MP_SMALL with a label and a weight."""
+    MP_SMALL with a label, a weight and a class label (the label above its
+    median)."""
     n, d = MP_SMALL
     X, _ = blobs(n, d, 4, SEED + 11)
     y = regression_label(X, SEED + 11)
     w = np.random.default_rng(SEED + 12).uniform(0.5, 2.0, n).astype(np.float32)
-    return X, y, w
+    return X, y, w, (y > np.median(y)).astype(np.float32)
 
 
-def mp_small_fits(X, y, w):
-    """The empty-rank case's fits (in-core): label -> model attributes."""
+def mp_small_fits(X, y, w, c):
+    """The empty-rank case's fits (in-core): label -> model attributes; and
+    "NearestNeighbors": the (ids, distances) of the kNN search of its first
+    MP_KNN_SMALL_QUERIES rows (none on a rank without rows)."""
+    from spark_rapids_ml_torch.classification import RandomForestClassifier
+    from spark_rapids_ml_torch.knn import NearestNeighbors
+    from spark_rapids_ml_torch.regression import RandomForestRegressor
+
     table = labelled_input(X, y, w)
-    return {label: mp_estimator(label).fit(X if kind == "array" else table).get_model_attributes()
-            for label, kind in MP_FITS.items() if label != "LinReg elastic net"}
+    out = {label: mp_estimator(label).fit(X if kind == "array" else table).get_model_attributes()
+           for label, kind in MP_FITS.items() if label != "LinReg elastic net"}
+    params = dict(numTrees=MP_RF_TREES, maxDepth=RF_DEPTH, maxBins=RF_BINS, seed=SEED)
+    out["RF classifier"] = RandomForestClassifier(**params).fit(
+        labelled_input(X, c, w)).get_model_attributes()
+    out["RF regressor"] = RandomForestRegressor(**params).fit(table).get_model_attributes()
+    nn = NearestNeighbors(k=K_KNN10, inputCol="features").fit(X)
+    out["NearestNeighbors"] = knn_arrays(nn.kneighbors(X[:MP_KNN_SMALL_QUERIES])[2])
+    return out
+
+
+def rank_call(torch, counters, sync, call):
+    """call() with the launch counters and the collective counters zeroed
+    just before it and read just after, its stages timed by the port's spans:
+    (its result, {seconds, launches, comm, spans})."""
+    from spark_rapids_ml_torch.parallel import partitioner
+    from spark_rapids_ml_torch.utils import record_spans
+
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    partitioner.reset_counters()
+    sync()
+    t0 = time.perf_counter()
+    with record_spans() as spans:
+        out = call()
+    sync()
+    return out, {"seconds": time.perf_counter() - t0,
+                 "launches": {name: getattr(fn, attr) for name, (fn, attr) in counters.items()},
+                 "comm": dict(partitioner.counters), "spans": dict(spans)}
+
+
+def rank_knn(torch, part, Xmm, rank, workdir, counters, sync) -> dict:
+    """Phase 3m's kNN runs on one rank: (a) NearestNeighbors on its 60/40
+    share of the main X (default ids), searched at the bench traffic (the
+    queries all on rank 0) and at k = 10 (the 4,096 queries 60/40) in every
+    form, by the all-gather route; (b) the ring through the estimator on its
+    share of X's first MP_RING_ITEMS rows against its share of the next
+    MP_RING_QUERIES, then exact_knn_distributed on the same tensors."""
+    import os
+
+    from spark_rapids_ml_torch import config as torch_config
+    from spark_rapids_ml_torch.knn import NearestNeighbors
+    from spark_rapids_ml_torch.ops.knn import exact_knn_distributed
+
+    out = {}
+    lo, hi = mp_rows(Xmm.shape[0], rank)
+    Q10 = np.load(os.path.join(workdir, "q10.npy"))
+    q10 = Q10[slice(*mp_rows(len(Q10), rank))]
+    bench = Xmm[: NQ_KNN if rank == 0 else 0]
+    nn, out["fit"] = rank_call(torch, counters, sync, lambda: NearestNeighbors(
+        k=K_KNN, inputCol="features").fit(Xmm[lo:hi]))
+    for form in ("float32",) + KNN_FORMS:
+        torch_config.set("knn_precision", form)
+        try:
+            for tag, k, Q in (("bench", K_KNN, bench), ("k=10", K_KNN10, q10)):
+                nn.setK(k)
+                res, out[(tag, form)] = rank_call(torch, counters, sync, lambda: nn.kneighbors(Q))
+                out[(tag, form)]["result"] = knn_arrays(res[2])
+        finally:
+            torch_config.unset("knn_precision")
+    del nn
+    gc.collect()
+    n_ring = min(MP_RING_ITEMS, Xmm.shape[0] - MP_RING_QUERIES)
+    ilo, ihi = mp_rows(n_ring, rank)
+    qlo, qhi = mp_rows(MP_RING_QUERIES, rank)
+    Qr = Xmm[n_ring + qlo : n_ring + qhi]
+    nr, out["ring fit"] = rank_call(torch, counters, sync, lambda: NearestNeighbors(
+        k=K_KNN10, inputCol="features").fit(Xmm[ilo:ihi]))
+    res, out["ring"] = rank_call(torch, counters, sync, lambda: nr.kneighbors(Qr))
+    out["ring"]["result"] = knn_arrays(res[2])
+    # the all-gather route on the same ranks, items and queries
+    X, x2, _ = nr._items_on(nr.device)
+    Q = torch.from_numpy(np.ascontiguousarray(Qr)).to(X.device)
+    valid = torch.ones((X.shape[0],), dtype=torch.bool, device=X.device)
+    (d2, ids), out["ring, all-gather route"] = rank_call(
+        torch, counters, sync, lambda: exact_knn_distributed(
+            Q, X, valid, K_KNN10, part, nr._layout, x2=x2, ids=nr._ids_on(X.device)))
+    # the square root on the host, as kneighbors takes it
+    out["ring, all-gather route"]["result"] = (ids.cpu().numpy(), np.sqrt(d2.cpu().numpy()))
+    out["ring rows"] = ((ilo, ihi), (qlo, qhi), n_ring)
+    return out
+
+
+def rank_forest(torch, rank, workdir, counters, sync) -> dict:
+    """Phase 3m's forest runs on one rank: RandomForestClassifier and
+    RandomForestRegressor at MP_RF_TREES trees on its 60/40 share of the
+    forest data, from an Arrow table over the memory-mapped rows."""
+    import os
+
+    import pyarrow as pa
+
+    from spark_rapids_ml_torch.classification import RandomForestClassifier
+    from spark_rapids_ml_torch.regression import RandomForestRegressor
+
+    from spark_rapids_ml_torch.ops import trees
+
+    X = np.load(os.path.join(workdir, "rf_X.npy"), mmap_mode="r")
+    lo, hi = mp_rows(X.shape[0], rank)
+    params = dict(numTrees=MP_RF_TREES, maxDepth=RF_DEPTH, maxBins=RF_BINS, seed=SEED)
+    out = {"rows": (lo, hi)}
+    split_gains = trees._split_gains
+    for label, est, y in (("RF classifier", RandomForestClassifier, "rf_ycls"),
+                          ("RF regressor", RandomForestRegressor, "rf_yreg")):
+        yl = np.load(os.path.join(workdir, f"{y}.npy"), mmap_mode="r")[lo:hi]
+        feats = pa.FixedSizeListArray.from_arrays(pa.array(X[lo:hi].reshape(-1)), X.shape[1])
+        table = pa.table({"features": feats, "label": pa.array(yl)})
+        top2 = []  # the regressor's: each level's two best gains a node (near ties)
+
+        def recorded(*args, **kwargs):
+            gain = split_gains(*args, **kwargs)
+            top2.append(torch.topk(gain.reshape(gain.shape[0], -1), 2, dim=1).values.cpu().numpy())
+            return gain
+
+        if label == "RF regressor":
+            trees._split_gains = recorded
+        try:
+            model, out[label] = rank_call(torch, counters, sync, lambda: est(**params).fit(table))
+        finally:
+            trees._split_gains = split_gains
+        out[label]["attrs"] = model.get_model_attributes()
+        out[label]["top2"] = top2
+        del model, table, feats
+        gc.collect()
+    return out
 
 
 def rank_main(argv) -> int:
     """One rank of phase 3m: `python3 chip_smoke.py --rank RANK WORLD WORKDIR
-    DEVICE`. It joins the group through the SRML_TPU_* environment, fits
-    MP_FITS on its rows of WORKDIR/{X,y,w}.npy (memory-mapped) in-core and
-    streamed, then the empty-rank case, and writes WORKDIR/rank<RANK>.pkl."""
+    DEVICE [JOB]`. It joins the group through the SRML_TPU_* environment.
+    JOB "main" (the default) fits MP_FITS on its rows of WORKDIR/{X,y,w}.npy
+    (memory-mapped) in-core and streamed, runs the kNN searches (rank_knn),
+    then the empty-rank case; JOB "forest" fits the forests on its rows of
+    WORKDIR/rf_*.npy (rank_forest). It writes WORKDIR/rank<RANK>.pkl."""
     import datetime
     import os
     import pickle
@@ -2540,6 +2888,7 @@ def rank_main(argv) -> int:
     from spark_rapids_ml_torch.parallel import bootstrap, partitioner
 
     rank, world, workdir, device = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    job = argv[4] if len(argv) > 4 else "main"
     torch_config.set("device", device)
     bootstrap.init_from_env(device=device, timeout=datetime.timedelta(seconds=MP_TIMEOUT))
     part = partitioner.active_partitioner()
@@ -2553,6 +2902,15 @@ def rank_main(argv) -> int:
             torch.cuda.synchronize()
 
     counters = launch_counters()
+    pin_in_core(torch_config)
+    if job == "forest":
+        out = {"rank": rank, "backend": torch.distributed.get_backend(), "device": str(dev),
+               "card": torch.cuda.get_device_name(dev) if on_card else "cpu",
+               "forest": rank_forest(torch, rank, workdir, counters, sync)}
+        with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+        bootstrap.reset_process_group()
+        return 0
     inits = []
     real_init = kmeans_mod.gathered_init
 
@@ -2603,20 +2961,22 @@ def rank_main(argv) -> int:
         out["fits"][("in-core", label)]["first_step"] = tuple(
             t.cpu().numpy() for t in part.all_reduce_sum(*step))
     del Xd, wd
+    out["knn"] = rank_knn(torch, part, Xmm, rank, workdir, counters, sync)
     # the empty-rank case: rank 0 holds every row, rank 1 none
-    Xs, ys, ws = mp_small_data()
+    Xs, ys, ws, cs = mp_small_data()
     keep = Xs.shape[0] if rank == 0 else 0
-    out["small"] = mp_small_fits(Xs[:keep], ys[:keep], ws[:keep])
+    out["small"] = mp_small_fits(Xs[:keep], ys[:keep], ws[:keep], cs[:keep])
     with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
     bootstrap.reset_process_group()
     return 0
 
 
-def run_ranks(workdir, world: int, device: str, visible=None) -> list:
-    """Start `world` rank processes of this script and wait for them, each under
-    MP_TIMEOUT; a rank that fails or times out fails the phase, after every
-    other rank is killed. Returns each rank's results."""
+def run_ranks(workdir, world: int, device: str, visible=None, job: str = "main") -> list:
+    """Start `world` rank processes of this script (rank_main's JOB `job`) and
+    wait for them, each under MP_TIMEOUT; a rank that fails or times out fails
+    the phase, after every other rank is killed. Returns each rank's
+    results."""
     import os
     import pickle
     import socket
@@ -2634,7 +2994,8 @@ def run_ranks(workdir, world: int, device: str, visible=None) -> list:
         log_path = os.path.join(workdir, f"rank{r}.log")
         with open(log_path, "w") as f:
             procs.append((subprocess.Popen(
-                [sys.executable, __file__, "--rank", str(r), str(world), str(workdir), device],
+                [sys.executable, __file__, "--rank", str(r), str(world), str(workdir), device,
+                 job],
                 env=env, stdout=f, stderr=subprocess.STDOUT), log_path))
     deadline = time.monotonic() + MP_TIMEOUT
     failed = None
@@ -2666,6 +3027,16 @@ def run_ranks(workdir, world: int, device: str, visible=None) -> list:
     return results
 
 
+def mp_workdir(name: str):
+    """A fresh directory build/<name> beside this script for phase 3m's files."""
+    from pathlib import Path
+
+    workdir = Path(__file__).resolve().parent / "build" / name
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    return workdir
+
+
 def sign_aligned_diff(got, want) -> float:
     """Largest |got - want| of two component matrices (rows), each row of got
     turned to want's sign first."""
@@ -2673,18 +3044,142 @@ def sign_aligned_diff(got, want) -> float:
     return float(np.abs(got * signs[:, None] - want).max())
 
 
+def log_rank_call(rank: int, label: str, f: dict) -> None:
+    """One line of a rank's call: seconds, collectives, bytes and spans."""
+    spans = ", ".join(f"{k} {v:.4f}" for k, v in f["spans"].items())
+    log(f"    rank {rank} {label}: {f['seconds']:.3f} s, {f['comm']['comm.collective_ops']} "
+        f"collectives, {f['comm']['comm.collective_bytes']} bytes; spans {spans}")
+
+
+def check_ring_ref(torch, X, n_ring: int, ring_ref) -> None:
+    """Hold the ring's single-process search (X's MP_RING_QUERIES rows after
+    the first n_ring against those rows, k = K_KNN10: the top-k kernel at that
+    query count) as check_topk holds the kernel: every query to the plain
+    version, d2 within 2 tol at every rank; every pair's d2 within tol of its
+    f64 value; and the ranks of MP_RING_F64_QUERIES queries, spread over the
+    rows and the last one with them, to f64. The ring and the
+    all-gather route are held to this search bit for bit, so their chain of
+    gates ends at the plain version. Its d2 are its distances squared in f64,
+    within a relative 2^-23 of the kernel's d2, far inside TOPK_RTOL."""
+    from spark_rapids_ml_torch.ops.topk import topk_plain
+
+    Q, items = X[n_ring : n_ring + MP_RING_QUERIES], X[:n_ring]
+    nq = Q.shape[0]
+    valid = torch.ones(n_ring, dtype=torch.bool, device=X.device)
+    ids = torch.from_numpy(ring_ref[0]).to(X.device)
+    d2 = torch.from_numpy(ring_ref[1]).to(X.device).double() ** 2
+    t0 = time.perf_counter()
+    dp, ip = topk_plain(Q, items, valid, K_KNN10)
+    rows = torch.cat([torch.arange(0, nq, max(1, nq // MP_RING_F64_QUERIES), device=X.device),
+                      torch.tensor([nq - 1], device=X.device)])
+    ref, x2max = topk_f64(Q[rows], items, valid, K_KNN10)
+    tol_all = TOPK_RTOL * ((Q.double() ** 2).sum(1) + x2max)
+    label = f"the ring's single-process search nq={nq} n={n_ring} k={K_KNN10}"
+    e_k = check_topk_result(d2, ids, Q, items, valid, K_KNN10, rows, ref, tol_all[rows],
+                            f"{label} kernel")
+    e_p = check_topk_result(dp, ip, Q, items, valid, K_KNN10, rows, ref, tol_all[rows],
+                            f"{label} plain")
+    diff = (d2 - dp.double()).abs()
+    require(bool((diff <= 2 * tol_all[:, None]).all()), f"topk {label}: kernel vs plain d2")
+    # every query's pairs against their f64 d2, so an id can differ from the
+    # plain version's only for an item as near
+    e_all = 0.0
+    for lo in range(0, nq, 8192):
+        sl = slice(lo, lo + 8192)
+        d64 = ((items[ids[sl]].double() - Q[sl, None, :].double()) ** 2).sum(-1)
+        e_all = max(e_all, float(((d2[sl] - d64).abs() / tol_all[sl, None]).max()))
+    require(e_all <= 1.0, f"topk {label} kernel: a d2 is {e_all:g} tol from its f64 value")
+    log(f"  topk {label}: id mismatches kernel vs plain {int((ids != ip.long()).sum())} of "
+        f"{ids.numel()}; max d2 error vs f64 / tol: every pair {e_all:.3f}, ranks on "
+        f"{rows.numel()} queries kernel {e_k:.3f}, plain {e_p:.3f}; max |kernel - plain| d2 "
+        f"{float(diff.max()):.4g}; {time.perf_counter() - t0:.1f} s")
+
+
+def check_mp_knn(torch, run, ranks, X, refs, ring_ref, n_ring, launches, on_card) -> None:
+    """Phase 3m's kNN gates: (a) the all-gather route at both traffics in
+    every form against phase 3's single-process searches (refs["knn"]): f32
+    bit for bit; bf16 and int8 the re-rank invariant bit for bit, each
+    distance at most the single-process narrow search's, recall@k against f32
+    at least KNN_RECALL_GATE; (b) the ring against the single-process search
+    of the same items and queries and against exact_knn_distributed on the
+    same ranks, bit for bit; the launches and collectives of each call."""
+    from spark_rapids_ml_torch.ops.knn import parity_rerank_sq
+
+    valid = torch.ones(X.shape[0], dtype=torch.bool, device=X.device)
+    queries = {"bench": X[:NQ_KNN], "k=10": torch.from_numpy(refs["q10"]).to(X.device)}
+    for res in ranks:
+        for label, f in res["knn"].items():
+            if isinstance(f, dict):
+                log_rank_call(res["rank"], f"kNN {label}", f)
+                if launches is not None:
+                    for name, c in f["launches"].items():
+                        launches[name] += c
+
+    def gathered(key):
+        parts = [r["knn"][key]["result"] for r in ranks if r["knn"][key]["result"][0].size]
+        return np.concatenate([p[0] for p in parts]), np.concatenate([p[1] for p in parts])
+
+    for (tag, form), (ids1, dist1) in refs["knn"].items():
+        ids, dist = gathered((tag, form))
+        k = ids1.shape[1]
+        name = {"float32": "topk", "bfloat16": "topk_bf16", "int8": "topk_int8"}[form]
+        comm = [r["knn"][(tag, form)]["comm"] for r in ranks]
+        require(all(c == comm[0] for c in comm) and comm[0]["comm.collective_ops"] == 3,
+                f"{run}: kNN {tag} {form}: collectives {comm}")
+        if on_card:
+            for r in ranks:
+                require(r["knn"][(tag, form)]["launches"][name] >= 1,
+                        f"{run}: rank {r['rank']} kNN {tag} {form} launched no {name}")
+        if form == "float32":
+            require(bits_equal(ids, ids1) and bits_equal(dist, dist1),
+                    f"{run}: kNN {tag} f32 differs from the single-process search")
+            log(f"  {run}: kNN {tag} ({ids.shape[0]} queries, k={k}) f32, all-gather route: "
+                "the single-process ids and distances bit for bit")
+            continue
+        d2r, ids_r = parity_rerank_sq(queries[tag], X, valid,
+                                      torch.from_numpy(ids).to(X.device).int(), k)
+        require(bits_equal(ids_r.cpu().numpy().astype(np.int64), ids)
+                and bits_equal(np.sqrt(d2r.cpu().numpy()), dist),
+                f"{run}: kNN {tag} {form}: the distances are not the re-rank of the ids")
+        above = int((dist > dist1).sum())
+        ids32 = refs["knn"][(tag, "float32")][0]
+        recall = float(np.mean([len(np.intersect1d(a, b)) / k for a, b in zip(ids, ids32)]))
+        log(f"  {run}: kNN {tag} {form}, all-gather route: re-rank invariant bit for bit; "
+            f"{above} distances above the single-process {form} search's; recall@{k} against f32 "
+            f"{recall:.6f} (gate {KNN_RECALL_GATE[form]}; single process "
+            f"{float(np.mean([len(np.intersect1d(a, b)) / k for a, b in zip(ids1, ids32)])):.6f})")
+        require(above == 0, f"{run}: kNN {tag} {form}: a distance above the single-process one")
+        require(recall >= KNN_RECALL_GATE[form], f"{run}: kNN {tag} {form}: recall {recall}")
+    ring, via_ag = gathered("ring"), gathered("ring, all-gather route")
+    require(bits_equal(ring[0], ring_ref[0]) and bits_equal(ring[1], ring_ref[1]),
+            f"{run}: the kNN ring differs from the single-process search")
+    require(bits_equal(ring[0], via_ag[0]) and bits_equal(ring[1], via_ag[1]),
+            f"{run}: the kNN ring differs from the all-gather route")
+    for r in ranks:
+        f = r["knn"]["ring"]
+        require(f["comm"]["comm.collective_ops"] == len(ranks),
+                f"{run}: rank {r['rank']} ring collectives {f['comm']}")
+        if on_card:
+            require(f["launches"]["topk"] == len(ranks),
+                    f"{run}: rank {r['rank']} ring launched topk {f['launches']['topk']} times")
+    log(f"  {run}: kNN ring ({MP_RING_QUERIES} queries 60/40 against {n_ring} items 60/40, "
+        f"k={K_KNN10}): the single-process search and the all-gather route bit for bit")
+
+
 def phase_multiprocess(torch, Xh, yh, w_h, X, refs, launches=None, device="cuda") -> None:
     """Phase 3m: PCA, KMeans (unit and weighted) and LinearRegression (OLS,
     elastic net) across two rank processes, each fitting its ragged share of
-    the rows (MP_SHARE) through the estimators, in-core and streamed; then an
-    empty-rank case at MP_SMALL. X is Xh on `device`; `refs` holds the
-    single-process results the fits are held to: "pca" and "pca_streamed"
-    (models), "beta64" and "en64" (f64 OLS and elastic-net coefficients),
-    "ols", "en" and "ols_streamed" (the f32 fits' coefficients, MP_LR_SINGLE).
-    The ranks' kernel launches are added to `launches`."""
+    the rows (MP_SHARE) through the estimators, in-core and streamed; the kNN
+    searches (rank_knn, check_mp_knn); then an empty-rank case at MP_SMALL
+    (those fits, both forests and a kNN search). X is Xh on `device`; `refs`
+    holds the single-process results the fits are held to: "pca" and
+    "pca_streamed" (models), "beta64" and "en64" (f64 OLS and elastic-net
+    coefficients), "ols", "en" and "ols_streamed" (the f32 fits'
+    coefficients, MP_LR_SINGLE), "q10" (the k = 10 queries) and "knn"
+    (phase 3's searches, (traffic, form) -> (ids, distances)). The ranks'
+    kernel launches are added to `launches`. The forests' runs are
+    phase_multiprocess_forest's, with their data in phase_forest."""
     import os
-    import shutil
-    from pathlib import Path
 
     from spark_rapids_ml_torch.ops.lloyd import lloyd_fit
     from spark_rapids_ml_torch.ops.select import assign
@@ -2692,14 +3187,24 @@ def phase_multiprocess(torch, Xh, yh, w_h, X, refs, launches=None, device="cuda"
     n, d = Xh.shape
     log(f"phase 3m: {MP_WORLD} rank processes at {n} x {d}, rows {MP_SHARE:.0%} / "
         f"{1 - MP_SHARE:.0%}, in-core and streamed ({STREAM_BATCH_MAIN} rows a global batch)")
-    workdir = Path(__file__).resolve().parent / "build" / "phase3m"
-    shutil.rmtree(workdir, ignore_errors=True)
-    workdir.mkdir(parents=True)
+    workdir = mp_workdir("phase3m")
     t0 = time.perf_counter()
-    for name, a in (("X", Xh), ("y", yh), ("w", w_h)):
+    for name, a in (("X", Xh), ("y", yh), ("w", w_h), ("q10", refs["q10"])):
         np.save(workdir / f"{name}.npy", a)
     log(f"  wrote X, y and w ({(Xh.nbytes + yh.nbytes + w_h.nbytes) / 1e9:.3f} GB) for the "
         f"ranks to memory-map in {time.perf_counter() - t0:.1f} s")
+    # the ring's single-process reference: the same items and queries in one process
+    from spark_rapids_ml_torch.knn import NearestNeighbors
+
+    n_ring = min(MP_RING_ITEMS, n - MP_RING_QUERIES)
+    t0 = time.perf_counter()
+    nn_ring = NearestNeighbors(k=K_KNN10, inputCol="features").fit(Xh[:n_ring])
+    ring_ref = knn_arrays(nn_ring.kneighbors(Xh[n_ring : n_ring + MP_RING_QUERIES])[2])
+    del nn_ring
+    log(f"  the ring's single-process search ({MP_RING_QUERIES} queries, X's rows after the "
+        f"first {n_ring}, against those rows, k={K_KNN10}): {time.perf_counter() - t0:.3f} s "
+        "with its fit")
+    check_ring_ref(torch, X, n_ring, ring_ref)
     on_card = device == "cuda"
     runs = [("gloo, one card", "0" if on_card else None)]
     if on_card:
@@ -2713,8 +3218,8 @@ def phase_multiprocess(torch, Xh, yh, w_h, X, refs, launches=None, device="cuda"
         else:
             log(f"  the NCCL run (one rank a card) did not take place: "
                 f"{torch.cuda.device_count()} card(s)")
-    Xs, ys, ws = mp_small_data()
-    small_ref = mp_small_fits(Xs, ys, ws)
+    Xs, ys, ws, cs = mp_small_data()
+    small_ref = mp_small_fits(Xs, ys, ws, cs)
     # what the LinearRegression gates must tell apart: the f64 fits of rank
     # 0's rows alone, as a reduction that lost rank 1's part would give
     cut = mp_rows(n, 0)[1]
@@ -2752,6 +3257,7 @@ def phase_multiprocess(torch, Xh, yh, w_h, X, refs, launches=None, device="cuda"
                     if launches is not None:
                         for name, c in f["launches"].items():
                             launches[name] += c
+            check_mp_knn(torch, run, ranks, X, refs, ring_ref, n_ring, launches, on_card)
             r0, r1 = ranks[0]["fits"], ranks[1]["fits"]
             for key in r0:
                 require(bits_equal(r0[key]["attrs"], r1[key]["attrs"]),
@@ -2809,10 +3315,17 @@ def phase_multiprocess(torch, Xh, yh, w_h, X, refs, launches=None, device="cuda"
                     require(size_diff <= 2 * ties, f"{run}: {mode} {label} cluster sizes")
             for label, want in small_ref.items():
                 for res in ranks:
-                    require(bits_equal(res["small"][label], want),
+                    got = res["small"][label]
+                    if label == "NearestNeighbors" and res["rank"] > 0:  # no queries
+                        require(got[0].size == 0 and got[1].size == 0,
+                                f"{run}: the empty-rank kNN search returned rows on rank "
+                                f"{res['rank']}")
+                        continue
+                    require(bits_equal(got, want),
                             f"{run}: the empty-rank {label} differs from the single-process fit")
             log(f"  {run}: the empty-rank case ({MP_SMALL[0]} x {MP_SMALL[1]}, rank 1 with no rows) "
-                f"gives the single-process models bit for bit: {', '.join(small_ref)}")
+                f"gives the single-process models bit for bit: {', '.join(small_ref)} (the kNN "
+                f"search of {MP_KNN_SMALL_QUERIES} queries on rank 0, none on rank 1)")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -2918,11 +3431,7 @@ def main() -> int:
         Qk, X, valid_all, K_KNN, f"nq={NQ_KNN} n={N_MAIN} d={D_MAIN} k={K_KNN}")
     require(bool((ids_knn[:, 0].cpu() == torch.arange(NQ_KNN)).all()),
             "topk: a row of X queried is not its own nearest item")
-    rng = np.random.default_rng(SEED + 7)
-    self_rows = rng.choice(N_MAIN, NQ_KNN10 // 2, replace=False)
-    fresh = true_centers[rng.integers(0, K_MAIN, NQ_KNN10 - NQ_KNN10 // 2)]
-    fresh += rng.standard_normal(fresh.shape, dtype=np.float32)
-    Qh_knn10 = np.concatenate([Xh[self_rows], fresh])
+    Qh_knn10, self_rows = knn10_queries(Xh, true_centers)
     Qk10 = torch.from_numpy(Qh_knn10).cuda()
     sample = torch.arange(0, NQ_KNN10, NQ_KNN10 // KNN_F64_QUERIES, device="cuda")
     _, d2_knn10, ids_knn10 = check_topk(
@@ -3271,6 +3780,11 @@ def main() -> int:
                 f"items' copy {spans.get('narrow_items', 0.0):.4f} s), join "
                 f"{stages[f'NearestNeighbors join{tag}'][0]:.3f} s; recall@{k} against f32 "
                 f"{recall:.6f} (gate {gate}); distances at most {worst:.4f} tol off f64")
+    # phase 3m's kNN runs are held to these searches: keep their answers
+    knn_refs = {("bench", "float32"): knn_arrays(knn_df), ("k=10", "float32"): knn_arrays(knn_df10)}
+    for precision in KNN_FORMS:
+        for tag, k in (("bench", K_KNN), ("k=10", K_KNN10)):
+            knn_refs[(tag, precision)] = knn_arrays(narrow_out[(precision, k)][0])
     del nn, knn_df, joined, knn_df10, joined10, narrow_out
 
     # the streamed fits (phase 3s) take their labelled input from an Arrow
@@ -3291,7 +3805,8 @@ def main() -> int:
         "pca": pca, "pca_streamed": streamed["PCA fit, streamed, cache off"],
         "beta64": beta64.cpu().numpy(), "en64": en64["coefficients"],
         "ols": ols.coefficients, "en": en.coefficients,
-        "ols_streamed": streamed["LinReg OLS fit, streamed, cache off"].coefficients}, launches)
+        "ols_streamed": streamed["LinReg OLS fit, streamed, cache off"].coefficients,
+        "q10": Qh_knn10, "knn": knn_refs}, launches)
     del streamed
 
     log("phase 4: times at the main paths' shapes (CUDA events, median of 10; 3 for topk "

@@ -57,15 +57,20 @@ class HasIDCol(Params):
     def setIdCol(self, value: str) -> "HasIDCol":
         return self._set(idCol=value)  # type: ignore[return-value]
 
-    def _ensureIdCol(self, df: Any) -> Any:
+    def _ensureIdCol(self, df: Any, offset: int = 0) -> Any:
         """`df` with the id column (reference params.py:110-129): when idCol is
         unset it becomes "unique_id_<uid>", and a pandas frame without the
-        column gets one numbering its rows."""
+        column gets one numbering its rows from `offset` (a rank's global row
+        offset under a process group)."""
         from .dataset import ensure_id_col
 
+        return ensure_id_col(df, self._id_col_name(), offset)
+
+    def _id_col_name(self) -> str:
+        """The id column's name; an unset idCol becomes "unique_id_<uid>"."""
         if not self.isDefined(self.idCol):
             self._set(idCol="unique_id_" + self.uid)
-        return ensure_id_col(df, self.getOrDefault(self.idCol))
+        return self.getOrDefault(self.idCol)
 
 
 def resolve_device(name: Optional[str] = None) -> torch.device:

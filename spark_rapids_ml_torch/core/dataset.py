@@ -244,6 +244,23 @@ def extract_feature_data(
     )
 
 
+def empty_partition(dataset: Any, multiprocess: bool, dtype: Any, width: int = 0, *,
+                    label: bool = False, weight: bool = False,
+                    row_id: bool = False) -> Optional[FeatureData]:
+    """Under a process group an empty pandas or Arrow frame is this rank's
+    empty partition: no rows, of `width` columns (0: the group's width, which
+    the caller takes from the other ranks), with empty label, weight and id
+    arrays where asked. None for any other input."""
+    frame = _is_pandas_df(dataset) or _is_arrow(dataset)
+    if not (multiprocess and frame and len(dataset) == 0):
+        return None
+    empty = np.zeros((0,), dtype)
+    return FeatureData(features=np.zeros((0, width), dtype),
+                       label=empty if label else None,
+                       weight=empty if weight else None,
+                       row_id=np.zeros((0,), np.int64) if row_id else None)
+
+
 def ensure_dtype(X: np.ndarray, float32: bool = True) -> np.ndarray:
     """Host-cast a dense block to the compute dtype (no copy when it already
     is), counted as a conversion. The Arrow view may come in its source dtype;
@@ -273,13 +290,16 @@ def require_finite_rows(X: Any, what: str, offset: int = 0) -> None:
         raise ValueError(f"{what} row {row} has a NaN or infinite feature; the port takes finite features")
 
 
-def ensure_id_col(dataset: Any, id_col_name: str) -> Any:
+def ensure_id_col(dataset: Any, id_col_name: str, offset: int = 0) -> Any:
     """A pandas frame without the column `id_col_name` comes back as a copy
-    with it, 0..n-1 int64 (reference params.py:110-129 `_ensureIdCol`); other
-    inputs come back as they are, and their rows are numbered 0..n-1."""
+    with it, offset..offset+n-1 int64 (reference params.py:110-129
+    `_ensureIdCol`); other inputs come back as they are, and their rows are
+    numbered from offset too. Under a process group `offset` is the rank's
+    global row offset, so the default ids are the global row numbers that one
+    process would give the ranks' rows in rank order."""
     if _is_pandas_df(dataset) and id_col_name not in dataset.columns:
         dataset = dataset.copy()
-        dataset[id_col_name] = np.arange(len(dataset), dtype=np.int64)
+        dataset[id_col_name] = np.arange(offset, offset + len(dataset), dtype=np.int64)
     return dataset
 
 

@@ -57,9 +57,8 @@ from ..utils import get_logger, span
 from .backend_params import _TorchClass, _TorchParams
 from .dataset import (
     FeatureData,
-    _is_arrow,
-    _is_pandas_df,
     append_output_columns,
+    empty_partition,
     ensure_dtype,
     extract_feature_data,
 )
@@ -125,14 +124,11 @@ class _TorchEstimator(_TorchClass, _TorchParams):
         input_col, input_cols = self._get_input_columns()
         label_col = self.getOrDefault("labelCol") if self._use_label() else None
         weight_col = self.getOrDefault("weightCol") if self._use_sample_weight() else None
-        frame = _is_pandas_df(dataset) or _is_arrow(dataset)
-        if part is not None and part.is_multiprocess and frame and len(dataset) == 0:
-            # a rank's empty partition: no rows, and a width the other ranks give
-            dt = np.float32 if self._float32_inputs else np.float64
-            empty = np.zeros((0,), dt)
-            return FeatureData(features=np.zeros((0, 0), dt),
-                               label=empty if label_col is not None else None,
-                               weight=empty if weight_col is not None else None)
+        empty = empty_partition(dataset, part is not None and part.is_multiprocess,
+                                np.float32 if self._float32_inputs else np.float64,
+                                label=label_col is not None, weight=weight_col is not None)
+        if empty is not None:
+            return empty
         fd = extract_feature_data(
             dataset,
             input_col=input_col,

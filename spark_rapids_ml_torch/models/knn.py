@@ -21,16 +21,33 @@
 #     distance) rows (reference knn.py:435-482); a slot naming no real item
 #     (id -1) or with a non-finite distance is dropped.
 #
+# Across processes (parallel/partitioner.py): under a process group each rank
+# calls fit() with its own items, and the model is distributed, as the
+# reference's item_df is: each rank keeps its shard, its ids and norms, and
+# the group's layout (one all-gather at fit). The default ids (a frame without
+# the id column, or numpy input) are the global row numbers, items and
+# queries alike. kneighbors() and exactNearestNeighborsJoin() are then
+# collective calls: each rank passes its own queries (none at all is fine) and
+# gets their neighbors among every rank's items, by the all-gather merge below
+# _RING_QUERY_THRESHOLD global queries and by the ring at or above it
+# (ops/knn.py); one all-gather of every rank's (query count, non-finite flag,
+# no room for the ring) picks the route, so every rank takes the same one, and
+# a non-finite query on any rank raises ValueError on every rank (a rank short
+# of memory for the ring, MemoryError). k is clamped to the global item
+# count. A model built by `from_attributes` holds all its items in each
+# process; under a group its search raises NotImplementedError, before any
+# collective.
+#
 # The items stay on the device between calls: fit stages them once, and a model
 # built from attributes stages them at its first search. They must fit the
 # card: the JAX package's out-of-core scan above `stream_threshold_bytes` is
 # not ported, and a search that does not fit raises.
 #
-# Not ported: ApproximateNearestNeighbors (IVF-Flat, IVF-PQ, CAGRA), the ring
-# and multi-process routes, the streamed scan, the incremental tier
-# (add_items / delete_items / compact_items; a carried `item_valid` mask is
-# honored), serving, persistence; k above the kernel's K_MAX raises (above
-# 205 in a narrow form, whose pool of k + max(8, k // 4) must fit K_MAX).
+# Not ported: ApproximateNearestNeighbors (IVF-Flat, IVF-PQ, CAGRA), the
+# streamed scan, the incremental tier (add_items / delete_items /
+# compact_items; a carried `item_valid` mask is honored), serving,
+# persistence; k above the kernel's K_MAX raises (above 205 in a narrow form,
+# whose pool of k + max(8, k // 4) must fit K_MAX).
 #
 
 from __future__ import annotations
@@ -42,14 +59,25 @@ import pandas as pd
 import torch
 
 from ..core.backend_params import HasFeaturesCols, HasIDCol, _TorchClass
-from ..core.dataset import ensure_dtype, extract_feature_data, require_finite_rows
+from ..core.dataset import (
+    _is_pandas_df,
+    empty_partition,
+    ensure_dtype,
+    extract_feature_data,
+    require_finite_rows,
+)
 from ..core.estimator import _TorchEstimator, _TorchModel, stage
 from ..core.params import HasInputCol, Param, ParamMap, TypeConverters
-from ..ops.knn import center_norms_sq, exact_knn_single
+from ..ops.knn import center_norms_sq, exact_knn_distributed, exact_knn_ring, exact_knn_single
 from ..ops.selection import resolve_fused_precision
 from ..ops.topk import narrow_rows
-from ..parallel.partitioner import active_partitioner
+from ..parallel.partition import PartitionDescriptor
+from ..parallel.partitioner import Partitioner, active_partitioner
 from ..utils import span
+
+# at or above this many queries over the group the search takes the ring,
+# below it the all-gather merge (the JAX package's threshold)
+_RING_QUERY_THRESHOLD = 65536
 
 
 class _NNParams(HasInputCol, HasFeaturesCols, HasIDCol):
@@ -66,6 +94,25 @@ class _NNParams(HasInputCol, HasFeaturesCols, HasIDCol):
 
     def setInputCol(self, value: str):
         return self._set(inputCol=value)
+
+
+def _extract_rows(est: Any, dataset: Any, part: Partitioner, width: int = 0):
+    """The rows of `dataset` in f32, with their user ids where the input has
+    the id column (else row_id is None: the caller numbers the rows). Under a
+    process group an empty frame is this rank's empty partition, of `width`
+    columns (0: the group's width, which the caller takes from the layout)."""
+    id_col = est._id_col_name()
+    if _is_pandas_df(dataset) and id_col not in dataset.columns:
+        id_col = None  # numbered by the caller
+    empty = empty_partition(dataset, part.is_multiprocess, np.float32, width,
+                            row_id=id_col is not None)
+    if empty is not None:
+        return empty
+    input_col, input_cols = est._get_input_columns()
+    fd = extract_feature_data(dataset, input_col=input_col, input_cols=input_cols,
+                              id_col=id_col, float32=True)
+    fd.features = ensure_dtype(fd.features)
+    return fd
 
 
 class _NearestNeighborsClass(_TorchClass):
@@ -101,7 +148,9 @@ def _check_fits(device: torch.device, nbytes: int) -> None:
 
 class NearestNeighbors(_NearestNeighborsClass, _TorchEstimator, _NNParams):
     """Exact k-NN on one device (the card by default; `device="cpu"` asks for
-    the CPU). fit() stores the items; kneighbors() searches them.
+    the CPU), or across the ranks of a process group, each holding its share
+    of the items (module header). fit() stores the items; kneighbors()
+    searches them.
 
     Example
     -------
@@ -111,6 +160,8 @@ class NearestNeighbors(_NearestNeighborsClass, _TorchEstimator, _NNParams):
     >>> model = NearestNeighbors(k=3, inputCol="features", device="cpu").fit(X)
     >>> _, _, knn_df = model.kneighbors(X[:4])   # query ids, indices, distances
     """
+
+    _multiprocess = True
 
     def __init__(self, **kwargs: Any) -> None:
         super().__init__()
@@ -129,30 +180,29 @@ class NearestNeighbors(_NearestNeighborsClass, _TorchEstimator, _NNParams):
             return self.copy(params).fit(dataset)
         self._validate_param_bounds()
         self._check_supported()
-        self._check_group(active_partitioner())
         device = self.device
-        dataset = self._ensureIdCol(dataset)
+        part = active_partitioner()
         with span("extract"):
-            input_col, input_cols = self._get_input_columns()
-            fd = extract_feature_data(
-                dataset, input_col=input_col, input_cols=input_cols,
-                id_col=self.getIdCol(), float32=True,
-            )
-            items = ensure_dtype(fd.features)
-        if fd.n_rows == 0:
+            fd = _extract_rows(self, dataset, part)
+        layout = part.descriptor(fd.n_rows, fd.n_cols)
+        if layout.m == 0:
             raise RuntimeError("Fit input is empty.")
-        _check_fits(device, items.nbytes + 4 * fd.n_rows)
+        items = fd.features.reshape(fd.n_rows, layout.n)
+        dataset = self._ensureIdCol(dataset, layout.offset)
+        _check_fits(device, items.nbytes + 12 * fd.n_rows)
         with span("stage"):
             X = stage(items, device)
         with span("norms"):  # Σ X², once: no search recomputes it
             x2 = center_norms_sq(X)
         model = NearestNeighborsModel(
             item_features=items,
-            item_ids=fd.row_id if fd.row_id is not None else np.arange(fd.n_rows, dtype=np.int64),
+            item_ids=(fd.row_id if fd.row_id is not None
+                      else np.arange(layout.offset, layout.offset + fd.n_rows, dtype=np.int64)),
             item_norms_sq=x2.cpu().numpy(),
             item_df=dataset,
         )
         model._staged = (device, X, x2, None)
+        model._layout = layout if part.is_multiprocess else None
         self._copyValues(model)
         return model
 
@@ -182,6 +232,10 @@ class NearestNeighborsModel(_NearestNeighborsClass, _TorchModel, _NNParams):
         self._staged: Optional[Tuple[torch.device, torch.Tensor, torch.Tensor, Any]] = None
         # the narrow forms' item operands for the staged items, by form
         self._narrow: Dict[str, Any] = {}
+        # the group's item layout when the model was fit across ranks: the
+        # items are then this rank's shard (module header)
+        self._layout: Optional[PartitionDescriptor] = None
+        self._ids_dev: Optional[torch.Tensor] = None
 
     def _transform_arrays(self, X: torch.Tensor) -> Dict[str, np.ndarray]:
         raise NotImplementedError("Use kneighbors() / exactNearestNeighborsJoin().")
@@ -218,33 +272,81 @@ class NearestNeighborsModel(_NearestNeighborsClass, _TorchModel, _NNParams):
 
     def _search(self, query_df: Any):
         """(query_df with its id column, query ids, item ids (nq, k), Euclidean
-        distances (nq, k)) of the k nearest items of each query row."""
+        distances (nq, k)) of the k nearest items of each query row; under a
+        process group, of this rank's query rows among every rank's items (a
+        collective call)."""
         self._validate_param_bounds()
         self._check_supported()
         device = self.device
-        query_df = self._ensureIdCol(query_df)
-        with span("extract"):
-            input_col, input_cols = self._get_input_columns()
-            fd = extract_feature_data(
-                query_df, input_col=input_col, input_cols=input_cols, id_col=self.getIdCol(),
+        part = active_partitioner()
+        layout = self._layout
+        ranks = 1 if layout is None else len(layout.parts_rank_size)
+        if part.process_count != ranks:
+            raise NotImplementedError(
+                f"this NearestNeighborsModel holds the items of {ranks} process(es) (a model "
+                "built from attributes holds them all): search it under the group it was fit "
+                f"in, not under {part.process_count} process(es)"
             )
-            query_ids = fd.row_id if fd.row_id is not None else np.arange(fd.n_rows, dtype=np.int64)
-            Qh = ensure_dtype(fd.features)
+        with span("extract"):
+            fd = _extract_rows(self, query_df, part,
+                               np.shape(self._model_attributes["item_features"])[1])
+        Qh = fd.features
         precision = resolve_fused_precision()
         X, x2, valid = self._items_on(device)
         with span("stage"):
             Q = stage(Qh, device)
             if valid is None:
                 valid = torch.ones((X.shape[0],), dtype=torch.bool, device=device)
+        if layout is None:
             require_finite_rows(Q, "kNN query")
-        items = self._narrow_items(precision)
-        d2, idx = exact_knn_single(Q, X, valid, self.getK(), x2=x2, precision=precision,
-                                   items=items)
-        with span("select"):  # the read back to the host, charged to the search
-            d2, idx = d2.cpu().numpy(), idx.cpu().numpy()
-        # a deleted item of a carried model names id -1, as in the JAX package
-        ids = np.asarray(self._model_attributes["item_ids"])[idx]
+            query_df = self._ensureIdCol(query_df)
+            items = self._narrow_items(precision)
+            d2, idx = exact_knn_single(Q, X, valid, self.getK(), x2=x2, precision=precision,
+                                       items=items)
+            with span("select"):  # the read back to the host, charged to the search
+                d2, idx = d2.cpu().numpy(), idx.cpu().numpy()
+            # a deleted item of a carried model names id -1, as in the JAX package
+            ids = np.asarray(self._model_attributes["item_ids"])[idx]
+            q0 = 0
+        else:
+            # the ring holds two padded shards (the one held, the one arriving)
+            shard = max(r for _, r in layout.parts_rank_size)
+            ring_bytes = 2 * shard * (4 * layout.n + 13) + 12 * Q.shape[0] * self.getK()
+            short = device.type == "cuda" and ring_bytes > torch.cuda.mem_get_info(device)[0]
+            bad = not bool(torch.isfinite(Q).all())
+            # one all-gather: every rank takes the same route, or raises
+            shapes = part.all_gather_ints(Q.shape[0], bad, short)
+            if any(flag for _, flag, _ in shapes):
+                require_finite_rows(Q, "kNN query")
+                raise ValueError("a kNN query row of another rank has a NaN or infinite feature; "
+                                 "the port takes finite features")
+            query_rows = [r for r, _, _ in shapes]
+            q0 = sum(query_rows[: part.process_index])
+            query_df = self._ensureIdCol(query_df, q0)
+            if sum(query_rows) >= _RING_QUERY_THRESHOLD:
+                if any(low for _, _, low in shapes):
+                    _check_fits(device, ring_bytes)
+                    raise MemoryError("another rank has no room for the kNN ring's two padded "
+                                      f"item shards of {shard} rows")
+                d2, ids = exact_knn_ring(Q, X, valid, self.getK(), part, layout, x2=x2,
+                                         ids=self._ids_on(device))
+            else:
+                d2, ids = exact_knn_distributed(
+                    Q, X, valid, self.getK(), part, layout, x2=x2, precision=precision,
+                    items=self._narrow_items(precision) if X.shape[0] else None,
+                    ids=self._ids_on(device), query_rows=query_rows)
+            with span("select"):
+                d2, ids = d2.cpu().numpy(), ids.cpu().numpy()
+        query_ids = (fd.row_id if fd.row_id is not None
+                     else np.arange(q0, q0 + fd.n_rows, dtype=np.int64))
         return query_df, query_ids, ids, np.sqrt(d2)
+
+    def _ids_on(self, device: torch.device) -> torch.Tensor:
+        """The shard's user ids on `device` (int64), staged once."""
+        if self._ids_dev is None or self._ids_dev.device != device:
+            self._ids_dev = torch.tensor(np.asarray(self._model_attributes["item_ids"]),
+                                         dtype=torch.int64, device=device)
+        return self._ids_dev
 
     def kneighbors(self, query_df: Any) -> Tuple[Any, Any, pd.DataFrame]:
         """(item_df, query_df, knn_df): knn_df has the query ids and, per query,

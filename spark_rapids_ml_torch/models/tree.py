@@ -5,8 +5,13 @@
 # classification.py:285-676 and regression.py:865-1147) over the level-wise
 # histogram forest builder of ops/trees.py:
 #   * every tree grows on all the rows of one device, its level histograms
-#     through the CUDA kernel of csrc/hist.cu on the card;
-#   * the missing-label check (reference tree.py:415-421);
+#     through the CUDA kernel of csrc/hist.cu on the card; under a process
+#     group each rank fits on its own rows and every rank grows the same
+#     forest, the level histograms added across the ranks (ops/trees.py);
+#     transform stays each rank's own, with no collective;
+#   * the label checks (reference tree.py:415-421), across the ranks of a
+#     group: integer labels from 0 on any rank, every class of 0..k-1 on some
+#     rank; each raises on every rank or on none;
 #   * probability and rawPrediction columns for the classifier (reference
 #     classification.py:502-515); featureImportances, totalNumNodes,
 #     toDebugString and per-tree views from the heap arrays.
@@ -181,6 +186,7 @@ class _RandomForestParams(
 
 class _RandomForestEstimator(_RandomForestClass, _TorchEstimatorSupervised, _RandomForestParams):
     _is_classification = False
+    _multiprocess = True
     # Spark caps tree depth at 30; the heap-layout forest (2^(depth+1) slots)
     # makes an early clear error better than a depth-exponential OOM
     _PARAM_BOUNDS_EXTRA = {"numTrees": (1, None), "maxDepth": (0, 30), "maxBins": (2, None)}
@@ -236,6 +242,8 @@ class _RandomForestEstimator(_RandomForestClass, _TorchEstimatorSupervised, _Ran
                 subsampling_rate=float(p["max_samples"]),
                 bootstrap=bool(p["bootstrap"]),
                 seed=int(p["random_state"]) if p["random_state"] is not None else 0,
+                part=inputs.partitioner,
+                layout=inputs.desc,
             )
             attrs["num_classes"] = n_classes
             return attrs
@@ -245,7 +253,8 @@ class _RandomForestEstimator(_RandomForestClass, _TorchEstimatorSupervised, _Ran
 
 class RandomForestRegressor(_RandomForestEstimator):
     """Random forest regression on one device (the card by default;
-    `device="cpu"` asks for the CPU); reference regression.py:865-1147.
+    `device="cpu"` asks for the CPU), or across the ranks of a process
+    group; reference regression.py:865-1147.
 
     Example
     -------
@@ -292,8 +301,9 @@ class RandomForestClassifier(
     _RandomForestEstimator, HasProbabilityCol, HasRawPredictionCol
 ):
     """Random forest classification on one device (the card by default;
-    `device="cpu"` asks for the CPU); reference classification.py:285-676.
-    Labels are the integers 0..k-1, each of which must appear.
+    `device="cpu"` asks for the CPU), or across the ranks of a process
+    group; reference classification.py:285-676. Labels are the integers
+    0..k-1, each of which must appear.
 
     Example
     -------
@@ -322,19 +332,28 @@ class RandomForestClassifier(
         return self._torch_params.get("split_criterion", "gini")
 
     def _row_stats(self, inputs: FitInputs):
-        """(n, n_classes) f32 one-hot rows scaled by the row weight."""
+        """(n, n_classes) f32 one-hot rows scaled by the row weight. Under a
+        process group the checks are global: one all-reduce MAX of (a bad
+        label on this rank, its largest label) and one all-reduce SUM of the
+        class counts, so every rank raises, or none."""
         y = inputs.label
-        classes = torch.unique(y)
-        n_classes = int(classes.max()) + 1 if len(classes) else 0
-        if not bool(torch.equal(classes, torch.trunc(classes))) or (
-            len(classes) and float(classes.min()) < 0
-        ):
+        part = inputs.partitioner
+        bad = bool(len(y)) and not (bool(torch.equal(y, torch.trunc(y))) and float(y.min()) >= 0)
+        top = int(y.max()) if len(y) and not bad else -1
+        flags = torch.tensor([int(bad), top], dtype=torch.int64)
+        if part is not None:
+            flags = part.all_reduce_max(flags)[0]
+        if int(flags[0]):
             raise ValueError("Labels must be non-negative integers 0..k-1.")
-        if len(classes) != n_classes:
+        n_classes = int(flags[1]) + 1
+        counts = torch.bincount(y.to(torch.int64), minlength=n_classes).cpu()
+        if part is not None:
+            counts = part.all_reduce_sum(counts)[0]
+        if bool((counts == 0).any()):
             # reference raises with workaround text (tree.py:415-421)
-            present = set(classes.to(torch.int64).tolist())
+            missing = (counts == 0).nonzero()[:, 0].tolist()
             raise RuntimeError(
-                f"Labels {sorted(set(range(n_classes)) - present)} "
+                f"Labels {missing} "
                 "are missing from the dataset: every class in 0..k-1 must appear."
             )
         stats = torch.zeros((len(y), n_classes), dtype=torch.float32, device=y.device)

@@ -243,6 +243,8 @@ def node_bin_histogram(
     _cuda.require(values, "values", (n, s))
     if width < 1 or nbins < 1:
         raise ValueError(f"width and nbins must be >= 1, got {width}, {nbins}")
+    if n == 0:  # a rank with no rows adds zeros, without a launch
+        return torch.zeros((width, d, nbins, s), dtype=torch.float32, device=Xb.device)
     if _cuda.device_kind(Xb, node_id, values) == "cpu":
         return node_bin_histogram_plain(Xb, node_id, values, width, nbins)
     out = _launch("node_bin_hist", Xb, node_id, values, width, nbins)

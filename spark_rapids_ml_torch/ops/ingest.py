@@ -2,9 +2,8 @@
 # Host-to-device ingest of the PyTorch port (counterpart of the JAX package's
 # ops/ingest.py): the one place where host rows are staged and uploaded, for
 # the streamed fits (ops/streaming.py) and for in-core staging
-# (core/estimator.py::stage). `process_local_span` / `stage_local_block` take
-# one rank's contiguous slice of a global host array, for a multi-process
-# caller whose ranks all see the same array.
+# (core/estimator.py::stage). Under a process group each rank stages only its
+# own rows, which its caller passes it.
 #
 #   * `stage_block` hands a CONTIGUOUS slice whose dtype the device casts
 #     exactly (`_device_castable`) to the upload as it is, a view: no host copy
@@ -168,36 +167,6 @@ def stage_block(arr: np.ndarray, s: int, e: int, dtype: Any,
             out = blk.copy()
     count_conversion(out.nbytes, time.perf_counter() - t0)
     return out
-
-
-def process_local_span(s: int, e: int, partitioner: Any = None) -> Tuple[int, int]:
-    """The sub-range of global rows [s, e) that THIS rank owns under the
-    contiguous rank layout, for a caller whose ranks all see the same global
-    host array: rank r of P takes rows [s + r*ceil(rows/P), ...), so no rank
-    stages a global batch. One process: [s, e). `partitioner` (anything with
-    process_index and process_count) defaults to the active one
-    (parallel/partitioner.py)."""
-    if partitioner is None:
-        from ..parallel.partitioner import active_partitioner
-
-        partitioner = active_partitioner()
-    rows = max(0, int(e) - int(s))
-    p = max(1, int(partitioner.process_count))
-    r = int(partitioner.process_index)
-    per = -(-rows // p)
-    ls = min(rows, r * per)
-    le = min(rows, ls + per)
-    return int(s) + ls, int(s) + le
-
-
-def stage_local_block(arr: np.ndarray, s: int, e: int, dtype: Any,
-                      pool: Optional[StagingPool] = None, *, slot: Any = None,
-                      force_copy: bool = False, partitioner: Any = None) -> np.ndarray:
-    """`stage_block` of this rank's slice of global rows [s, e)
-    (process_local_span); the zero-copy and counted-copy accounting is
-    stage_block's."""
-    ls, le = process_local_span(s, e, partitioner)
-    return stage_block(arr, ls, le, dtype, pool, slot=slot, force_copy=force_copy)
 
 
 def host_tensor(a: np.ndarray) -> torch.Tensor:

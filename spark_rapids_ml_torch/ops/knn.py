@@ -19,23 +19,54 @@
 #   * `center_norms_sq`: the squared norms a fitted model caches, computed by
 #     the same reduce as the kernel's wrapper.
 #
-# On one device the JAX package's `exact_knn_distributed` is `exact_knn_single`
-# followed by the square root, so the port has no separate entry for it. Not
-# ported: the approx_max_k selection strategy (knn.selection=approx), the ring
-# and multi-process routes, the streamed scan, and the IVF / CAGRA indexes.
+# Across the ranks of a process group (parallel/partitioner.py) the items are
+# sharded, each rank holding its own, and each rank asks for the neighbors of
+# its own queries. Two routes, the JAX package's two multi-device ones:
+#   * `exact_knn_distributed`, the all-gather merge (its
+#     `_knn_local_then_merge_fn`): the queries are gathered, each rank scans
+#     its shard with `exact_knn_single` (the top-k kernel in the form
+#     knn_precision names, the exact re-rank for the narrow forms) at
+#     k_local = min(k, its rows), a shard with no rows giving only sentinels
+#     (d2 +inf, id -1); the candidates, padded to k, are gathered in one
+#     all-gather and merged exactly by `merge_topk` in rank-major pool order,
+#     so ties go to the lower global position, the single-process rule; each
+#     rank keeps the rows of its own queries;
+#   * `exact_knn_ring`, the ring (the JAX package's `exact_knn_ring`): the
+#     queries stay on their rank and the item shard, padded to the largest
+#     shard, rotates rank to rank by `Partitioner.ring_shift` with its valid
+#     mask, its cached norms and its ids; each of the P hops runs the top-k
+#     kernel of the local queries against the shard held, at k_hop = min(k,
+#     padded shard rows), and merges the hop into a running top-k. Peak memory
+#     a rank: two padded shards (the one held and the one arriving) beside the
+#     queries. Two departures from the JAX ring, both stated:
+#       - ties: the running merge breaks a tie by global position
+#         (`select_topk_by_id`), not by hop order. The JAX ring concatenates
+#         [best, hop], so its ties go to whichever shard reached the query's
+#         device first. Here both routes give the single-process search's
+#         bits;
+#       - precision: the JAX ring resolves its strategy without fusable=True,
+#         so it scans in exact f32 whatever knn_precision says; so does this
+#         one, in every form.
+# A pair's d2 from the kernel does not depend on the item range it is scanned
+# in, so in f32 both routes return the single-process search's distances and
+# ids bit for bit. Not ported: the approx_max_k selection strategy
+# (knn.selection=approx), the streamed scan, and the IVF / CAGRA indexes.
 #
 
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, Iterator, Optional, Tuple
+import math
+from typing import TYPE_CHECKING, Iterator, List, Optional, Tuple
 
 import torch
 
 from ..utils import span
 from ._precision import pdot
-from .selection import mask_invalid, merge_topk
+from .selection import mask_invalid, merge_topk, select_topk_by_id
 
 if TYPE_CHECKING:  # ops/topk.py imports this module
+    from ..parallel.partition import PartitionDescriptor
+    from ..parallel.partitioner import Partitioner
     from .topk import NarrowRows
 
 # Bytes of one (query block, all items) f32 distance tile: the scans below
@@ -138,3 +169,107 @@ def exact_knn_single(
             # may round another way than a width-k one)
             d2, ids = parity_rerank_sq(Q, X, valid, ids, k)
     return d2, ids
+
+
+def _item_ids(ids: Optional[torch.Tensor], layout: "PartitionDescriptor", n: int,
+              device: torch.device) -> torch.Tensor:
+    """The shard's int64 item ids: `ids`, else the global positions."""
+    if ids is not None:
+        return ids
+    return torch.arange(layout.offset, layout.offset + n, dtype=torch.int64, device=device)
+
+
+def exact_knn_distributed(
+    Q: torch.Tensor, X: torch.Tensor, valid: torch.Tensor, k: int,
+    part: "Partitioner", layout: "PartitionDescriptor",
+    *, x2: Optional[torch.Tensor] = None, precision: Optional[str] = None,
+    items: Optional["NarrowRows"] = None, ids: Optional[torch.Tensor] = None,
+    query_rows: Optional[List[int]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact kNN of this rank's queries Q against the items of every rank, by
+    the all-gather merge (module header): (squared distances ascending
+    (nq, min(k, layout.m)) f32, int64 item ids). X, valid, x2 and `items`
+    are this rank's item shard, global rows [layout.offset, + its rows);
+    `ids` its int64 item ids (default: the global positions). `query_rows`
+    is every rank's query count in rank order, when the caller has gathered
+    them. Collective: every rank calls it, with or without queries or items."""
+    nq, d = Q.shape
+    if query_rows is None:
+        query_rows = [r for (r,) in part.all_gather_ints(nq)]
+    with span("exchange", route="allgather"):
+        Qall = part.all_gather_rows(Q, query_rows)
+    n, nq_all = X.shape[0], Qall.shape[0]
+    k_eff = min(int(k), layout.m)
+    d2 = torch.full((nq_all, k_eff), math.inf, dtype=torch.float32, device=X.device)
+    cand = torch.full((nq_all, k_eff), -1, dtype=torch.int64, device=X.device)
+    if n and nq_all:
+        local_d2, idx = exact_knn_single(Qall, X, valid, min(k_eff, n), x2=x2,
+                                         precision=precision, items=items)
+        d2[:, : idx.shape[1]] = local_d2
+        cand[:, : idx.shape[1]] = _item_ids(ids, layout, n, X.device)[idx.long()]
+    with span("exchange", route="allgather"):
+        # one all-gather of (d2 bits, id as two words) per candidate
+        packed = torch.cat([d2.view(torch.int32)[..., None],
+                            cand.view(torch.int32).reshape(nq_all, k_eff, 2)], dim=-1)
+        pool = part.all_gather_rows(packed, [nq_all] * part.process_count)
+        pool = pool.view(part.process_count, nq_all, k_eff, 3)
+    if nq == 0:
+        return d2[:0], cand[:0]
+    with span("merge"):
+        q0 = sum(query_rows[: part.process_index])
+        mine = pool[:, q0 : q0 + nq].transpose(0, 1)  # (nq, P, k_eff, 3), rank-major
+        width = part.process_count * k_eff
+        pool_d2 = mine[..., 0].contiguous().view(torch.float32).reshape(nq, width)
+        pool_ids = mine[..., 1:].contiguous().view(torch.int64).reshape(nq, width)
+        return merge_topk(pool_d2, pool_ids, k_eff)
+
+
+def exact_knn_ring(
+    Q: torch.Tensor, X: torch.Tensor, valid: torch.Tensor, k: int,
+    part: "Partitioner", layout: "PartitionDescriptor",
+    *, x2: Optional[torch.Tensor] = None, ids: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact kNN of this rank's queries Q against the items of every rank, by
+    the ring (module header): (squared distances ascending (nq, min(k,
+    layout.m)) f32, int64 item ids), in exact f32. X, valid, x2 and `ids` as
+    in exact_knn_distributed. Collective: every rank calls it."""
+    count, rank = part.process_count, part.process_index
+    rows = [sz for _, sz in layout.parts_rank_size]
+    starts = [sum(rows[:r]) for r in range(count)]
+    shard = max(rows)
+    n, d = X.shape
+    nq = Q.shape[0]
+    dev = X.device
+    k_eff = min(int(k), layout.m)
+    k_hop = min(k_eff, shard)
+    if x2 is None:
+        x2 = center_norms_sq(X)
+    # the held shard, padded to the largest: invalid rows with id -1
+    Xc = torch.zeros((shard, d), dtype=X.dtype, device=dev)
+    vc = torch.zeros((shard,), dtype=torch.bool, device=dev)
+    x2c = torch.zeros((shard,), dtype=torch.float32, device=dev)
+    uc = torch.full((shard,), -1, dtype=torch.int64, device=dev)
+    Xc[:n], vc[:n], x2c[:n], uc[:n] = X, valid, x2, _item_ids(ids, layout, n, dev)
+    best_d2 = torch.full((nq, k_eff), math.inf, dtype=torch.float32, device=dev)
+    best_pos = torch.full((nq, k_eff), -1, dtype=torch.int64, device=dev)
+    best_ids = torch.full((nq, k_eff), -1, dtype=torch.int64, device=dev)
+    for h in range(count):
+        owner = (rank - h) % count
+        if nq and shard:
+            from .topk import fused_topk
+
+            with span("select", precision="float32", k=k_hop):
+                hop_d2, idx = fused_topk(Q, Xc, vc, k_hop, x2=x2c)
+            with span("merge"):
+                idx = idx.long()
+                pos = torch.where(idx < rows[owner], starts[owner] + idx, -1)
+                pool_pos = torch.cat([best_pos, pos], dim=1)
+                pool_ids = torch.cat([best_ids, uc[idx]], dim=1)
+                best_d2, sel = select_topk_by_id(torch.cat([best_d2, hop_d2], dim=1),
+                                                 pool_pos, k_eff)
+                best_pos = torch.gather(pool_pos, 1, sel)
+                best_ids = torch.gather(pool_ids, 1, sel)
+        if h < count - 1:  # the last hop's shard goes nowhere
+            with span("exchange", route="ring"):
+                Xc, vc, x2c, uc = part.ring_shift(Xc, vc, x2c, uc)
+    return best_d2, best_ids

@@ -46,14 +46,17 @@ def mask_invalid(d2: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     return torch.where(valid, d2, INVALID_D2)
 
 
-def _order_key(d2: torch.Tensor) -> torch.Tensor:
-    """int64 keys, unique along the last axis, ordering as (d2, index): the
-    f32 bits made monotone as a signed int, shifted into the high half, and
-    the index in the low half."""
+def _order_key(d2: torch.Tensor, low: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """int64 keys ordering as (d2, low): the f32 bits made monotone as a
+    signed int, shifted into the high half, and `low` (int64 in [0, 2^32),
+    default the index along the last axis, which makes the keys unique) in
+    the low half."""
     key = d2.contiguous().view(torch.int32).to(torch.int64)
     key ^= (key >> 31) & 0x7FFFFFFF  # negative floats: reverse their order
     key <<= 32
-    key |= torch.arange(d2.shape[-1], dtype=torch.int64, device=d2.device)
+    if low is None:
+        low = torch.arange(d2.shape[-1], dtype=torch.int64, device=d2.device)
+    key |= low
     return key
 
 
@@ -80,6 +83,19 @@ def merge_topk(
     pool position."""
     d2, pos = select_topk(pool_d2, k)
     return d2, torch.gather(pool_ids, -1, pos.long())
+
+
+def select_topk_by_id(
+    pool_d2: torch.Tensor, pool_ids: torch.Tensor, k: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact smallest-k of a candidate pool, clamped at INVALID_D2 as
+    select_topk is: (values ascending, int64 pool positions). Ties go to the
+    lower id of `pool_ids` (from -1 to 2^31 - 2), whatever the pool order."""
+    k = min(int(k), pool_d2.shape[-1])
+    d2 = torch.clamp(pool_d2, max=INVALID_D2)
+    low = pool_ids.to(torch.int64) + 1
+    pos = torch.topk(_order_key(d2, low), k, dim=-1, largest=False, sorted=True).indices
+    return torch.gather(d2, -1, pos), pos
 
 
 def top_k_max(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

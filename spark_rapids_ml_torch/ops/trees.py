@@ -28,19 +28,52 @@
 #     a lane gather is slow on the TPU);
 #   * a tree's levels run eagerly on the device with no host read inside a tree.
 #
-# Not ported: the streamed (uint8) fit, the multi-device histogram psum, the
-# forest JSON and treelite import/export.
+# Across the ranks of a process group (parallel/partitioner.py) each rank holds
+# its own rows and every rank grows the same forest, the counterpart of the
+# JAX package's sharded fit (`forest_fit` with shard_fn and mesh, whose
+# `_shard_psum` adds the level histograms over the devices):
+#   * edges: the single-process row sample, default_rng(seed).choice(n,
+#     sample_limit) over the global n when n > sample_limit, else every row;
+#     each rank takes the sampled rows it owns, one all-gather collects them,
+#     and np.quantile sorts each column, so the edges are the single-process
+#     edges bit for bit;
+#   * bootstrap: each rank draws the single-process per-tree vector over the
+#     global n and keeps its slice [offset, offset + rows). Every rank needs
+#     its generator in the same state for the next tree, so each draws all of
+#     n: the draws' host time does not fall with the rank count;
+#   * each level: each rank builds its node x bin histogram on its own rows
+#     with the kernel, and one all-reduce SUM of the (width, d, nbins, s) tile
+#     adds them. Every rank then holds the same bits, so split selection, the
+#     heap writes and the carried child stats are the same on every rank;
+#     each rank routes only its own rows;
+#   * the feature-subset scores come from the per-tree torch.Generator seeded
+#     as in one process; ranks on one device type draw the same scores.
+# The root's stats are level 0's histogram summed over feature 0's bins in
+# f64 and rounded once to f32, in one process and across ranks alike (the JAX
+# package sums the rows in f32), so they do not depend on how the rows are
+# split. On integer stats (a classifier under unit or bootstrap weights) the
+# forest is then the single-process forest bit for bit while every bin sum of
+# a level histogram stays below 2^24, where f32 adds integers exactly in any
+# order (at 50M rows and 32 quantile bins a root bin holds about 1.6M). On
+# real-valued stats the sums are added in another order.
+#
+# Not ported: the streamed (uint8) fit, the forest JSON and treelite
+# import/export.
 #
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional
+from typing import TYPE_CHECKING, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..utils import span
+
+if TYPE_CHECKING:
+    from ..parallel.partition import PartitionDescriptor
+    from ..parallel.partitioner import Partitioner
 from .histogram import node_bin_histogram
 from .selection import top_k_max
 
@@ -53,16 +86,26 @@ BIN_CHUNK_ELEMS = 1 << 28  # elements of X transposed at a time by bin_features
 
 
 def quantile_bin_edges(
-    X: torch.Tensor, max_bins: int, sample_limit: int = 200_000, seed: int = 0
+    X: torch.Tensor, max_bins: int, sample_limit: int = 200_000, seed: int = 0,
+    part: Optional["Partitioner"] = None, layout: Optional["PartitionDescriptor"] = None,
 ) -> np.ndarray:
     """Per-feature quantile thresholds, (d, max_bins-1) f32 on the host. Bin b
     holds x <= edges[b] (last bin open). Computed on a host copy of a row sample
     of X (on any device): the JAX package's sample, the same rows for the same
-    seed, and its numpy quantiles."""
-    n = X.shape[0]
-    if n > sample_limit:
-        idx = np.random.default_rng(seed).choice(n, sample_limit, replace=False)
-        X = X[torch.from_numpy(idx).to(X.device)]
+    seed, and its numpy quantiles. Under a process group X is this rank's
+    rows, global rows [layout.offset, + n) of layout.m, and the sample is the
+    single-process one, gathered from the ranks that own its rows (module
+    header): a collective call."""
+    sizes = [X.shape[0]] if layout is None else [r for _, r in layout.parts_rank_size]
+    rank = 0 if layout is None else layout.rank
+    starts = np.cumsum([0] + sizes)
+    if starts[-1] > sample_limit:
+        idx = np.random.default_rng(seed).choice(int(starts[-1]), sample_limit, replace=False)
+        sizes = [int(((idx >= a) & (idx < b)).sum()) for a, b in zip(starts[:-1], starts[1:])]
+        mine = idx[(idx >= starts[rank]) & (idx < starts[rank + 1])] - starts[rank]
+        X = X[torch.from_numpy(mine).to(X.device)]
+    if part is not None:
+        X = part.all_gather_rows(X, sizes)
     qs = np.linspace(0, 1, max_bins + 1)[1:-1]
     return np.quantile(X.cpu().numpy(), qs, axis=0).T.astype(np.float32)  # (d, max_bins-1)
 
@@ -181,14 +224,22 @@ def _level_step(
     min_instances: int,
     min_info_gain: float,
     generator: torch.Generator,
+    part: Optional["Partitioner"] = None,
 ) -> List[torch.Tensor]:
     """One tree level (width = 2**t): histogram, split selection, heap writes,
-    row routing and the children's stats. The heap arrays are written in place."""
+    row routing and the children's stats. The heap arrays are written in place.
+    Under a process group the histogram is added across the ranks. Level 0
+    takes the root's stats T from it (module header)."""
     feat_arr, thr_arr, leaf_arr, val_arr, gain_arr, wgt_arr, node_id, T = state
     s = values.shape[1]
     width = 2**t
     with span("histogram"):
         hist = node_bin_histogram(Xb, node_id, values, width, nbins)  # (w, d, b, s)
+    if part is not None and part.is_multiprocess:
+        with span("exchange"):
+            (hist,) = part.all_reduce_sum(hist)
+    if t == 0:
+        T = torch.sum(hist[:, 0], dim=1, dtype=torch.float64).float()  # (1, s)
     with span("split"):
         cum = torch.cumsum(hist, dim=2)
         gain = _split_gains(cum, T, impurity, k_features, min_instances, generator)
@@ -233,10 +284,13 @@ def build_tree(
     k_features: int,
     min_instances: int,
     min_info_gain: float,
+    part: Optional["Partitioner"] = None,
 ) -> Dict[str, torch.Tensor]:
     """Grow one tree; returns heap arrays of 2^(max_depth+1) slots on the
     device: feature (int32, -1 for a leaf), threshold (f32), is_leaf (bool),
-    value (slots, v), gain and node_weight (f32)."""
+    value (slots, v), gain and node_weight (f32). Under a process group
+    `part`, Xb and values are this rank's rows, and every rank returns the
+    same tree (a collective call: one all-reduce a level)."""
     n = Xb.shape[0]
     s = values.shape[1]
     n_slots = 2 ** (max_depth + 1)
@@ -252,12 +306,19 @@ def build_tree(
         torch.zeros((n_slots,), dtype=torch.float32, device=dev),  # gain
         torch.zeros((n_slots,), dtype=torch.float32, device=dev),  # node weight
         torch.zeros((n,), dtype=torch.int32, device=dev),  # node_id
-        torch.sum(values, dim=0)[None, :],  # (1, s) root stats
+        None,  # (1, s) root stats, from level 0's histogram
     ]
+    if max_depth == 0:
+        # no level: the rows' f64 sum, rounded once to f32 as level 0 rounds it
+        T = torch.sum(values, dim=0, dtype=torch.float64)[None, :]
+        if part is not None and part.is_multiprocess:
+            with span("exchange"):
+                (T,) = part.all_reduce_sum(T)
+        state[7] = T.float()
     for t in range(max_depth):
         state = _level_step(
             state, Xb, values, edges, t, nbins, impurity, k_features, min_instances,
-            min_info_gain, generator,
+            min_info_gain, generator, part,
         )
     feat_arr, thr_arr, leaf_arr, val_arr, gain_arr, wgt_arr, _, T = state
 
@@ -345,36 +406,44 @@ def forest_fit(
     subsampling_rate: float,
     bootstrap: bool,
     seed: int,
+    part: Optional["Partitioner"] = None,
+    layout: Optional["PartitionDescriptor"] = None,
 ) -> Dict[str, np.ndarray]:
     """Bin once, then grow the forest tree by tree; trees differ only in their
     bootstrap weights and feature-subset draws. Returns host arrays stacked over
-    trees, and the bin edges."""
+    trees, and the bin edges. Under a process group `part`, X and raw_stats
+    are this rank's rows, global rows [layout.offset, + n) of layout.m, and
+    every rank returns the same forest (module header)."""
     if n_trees < 1:
         raise ValueError(f"numTrees must be >= 1, got {n_trees}")
     if max_depth < 0:
         raise ValueError(f"maxDepth must be >= 0, got {max_depth}")
     n = X.shape[0]
+    total = n if layout is None else layout.m
+    lo = 0 if layout is None else layout.offset
     with span("bin"):
-        edges = quantile_bin_edges(X, max_bins, seed=seed)
+        edges = quantile_bin_edges(X, max_bins, seed=seed, part=part, layout=layout)
         edges_t = torch.from_numpy(edges).to(X.device)
         Xb = bin_features(X, edges_t)
     rng = np.random.default_rng(seed & 0x7FFFFFFF)
     trees: List[Dict[str, np.ndarray]] = []
     for i in range(n_trees):
         with span("bootstrap"):
+            # the draws over all the group's rows, of which this rank keeps its own
             if bootstrap:
-                w_tree = rng.poisson(subsampling_rate, size=n).astype(np.float32)
+                w_tree = rng.poisson(subsampling_rate, size=total).astype(np.float32)
             elif subsampling_rate < 1.0:
-                w_tree = (rng.random(n) < subsampling_rate).astype(np.float32)
+                w_tree = (rng.random(total) < subsampling_rate).astype(np.float32)
             else:
-                w_tree = np.ones((n,), np.float32)
+                w_tree = np.ones((total,), np.float32)
+            w_tree = w_tree[lo : lo + n]
             values = raw_stats * torch.from_numpy(w_tree).to(X.device)[:, None]
         gen = torch.Generator(device=X.device)
         gen.manual_seed((seed + 7919 * i) & 0x7FFFFFFF)
         tree = build_tree(
             Xb, values, edges_t, gen, max_depth=max_depth, nbins=max_bins,
             impurity=impurity, k_features=feature_subset, min_instances=min_instances,
-            min_info_gain=min_info_gain,
+            min_info_gain=min_info_gain, part=part,
         )
         trees.append({k: v.cpu().numpy() for k, v in tree.items()})
         del values

@@ -12,7 +12,16 @@
 # package becomes one all-reduce SUM of the same partial statistics here, and
 # the collective bytes are proportional to the state, never to the data. Two
 # all-reduces take the MAX: the streamed-or-in-core flag (`any`) and
-# LinearRegression's column ranges (ops/linear.py::constant_columns).
+# LinearRegression's column ranges (ops/linear.py::constant_columns). The
+# forests add their level histograms the same way (ops/trees.py).
+#
+# Exact kNN is the exception: its model is the item set, which stays sharded
+# (each rank holds its own items, as the reference's item_df is
+# distributed). Its two routes exchange candidates or items instead
+# (ops/knn.py): `all_gather_rows` gathers every rank's candidate lists, and
+# `ring_shift` (jax.lax.ppermute with i -> i + 1 mod P) passes each
+# rank's item shard to the next rank, one point-to-point send and receive a
+# rank (dist.batch_isend_irecv, which gloo and NCCL both take).
 #
 # The JAX package's parallel/mesh.py has no counterpart: one process drives one
 # device (parallel/bootstrap.py), so there is no mesh inside a rank.
@@ -21,8 +30,11 @@
 # Under gloo (the CPU, or ranks sharing a card) every payload goes through the
 # host: a CUDA tensor is copied to the CPU, reduced or gathered there, and
 # copied back (gloo's all_gather takes CPU tensors only). Every payload on
-# this path is a small statistic, a row count, or the KMeans init's strided
-# sample, so the copies cost little.
+# this path is a small statistic, a row count, a sample (the KMeans init's
+# strided one, the forest's edge sample) or kNN's queries and candidates, so
+# the copies cost little; the kNN ring's item shards are the exception (60%
+# of 1,048,576 x 256 f32 items is 0.64 GB a hop), which NCCL moves card to
+# card.
 #
 # Counters (`counters`, zeroed by `reset_counters`), under the JAX package's
 # names: comm.collective_ops (one per collective) and comm.collective_bytes
@@ -137,14 +149,18 @@ class Partitioner:
         dist.all_gather(parts, mine)
         return [tuple(int(v) for v in p.tolist()) for p in parts]
 
-    def all_gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+    def all_gather_rows(self, t: torch.Tensor, rows: Optional[List[int]] = None) -> torch.Tensor:
         """Every rank's rows of `t` (the same trailing shape and dtype on every
         rank, any number of rows, 0 included), concatenated in rank order on
         t's device: one all-gather of the row counts, one of the rows padded
-        to the longest part."""
+        to the longest part. `rows`, every rank's row count in rank order,
+        saves the first when the caller knows them."""
         if not self.is_multiprocess:
             return t
-        rows = [r for (r,) in self.all_gather_ints(t.shape[0])]
+        if rows is None:
+            rows = [r for (r,) in self.all_gather_ints(t.shape[0])]
+        if rows[self.process_index] != t.shape[0]:
+            raise ValueError(f"rank {self.process_index} holds {t.shape[0]} rows, not {rows[self.process_index]}")
         most = max(rows)
         mine = torch.zeros((most,) + tuple(t.shape[1:]), dtype=t.dtype, device=self._comm_device())
         mine[: t.shape[0]] = t.to(mine.device)
@@ -152,6 +168,25 @@ class Partitioner:
         self._count(mine)
         dist.all_gather(parts, mine)
         return torch.cat([p[:r] for p, r in zip(parts, rows)]).to(t.device)
+
+    def ring_shift(self, *tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """The ring step of jax.lax.ppermute with the permutation i -> i + 1
+        mod P: this rank sends its tensors to rank + 1 and returns rank - 1's,
+        which have the same shapes and dtypes, on the devices each was given
+        on. One batch of point-to-point sends and receives, counted as one
+        collective. One process: the tensors as they are."""
+        if not self.is_multiprocess:
+            return tensors
+        rank, count = self.process_index, self.process_count
+        sends = [t.contiguous().to(self._comm_device()) for t in tensors]
+        recvs = [torch.empty_like(t) for t in sends]
+        counters["comm.collective_ops"] += 1
+        counters["comm.collective_bytes"] += sum(t.numel() * t.element_size() for t in sends)
+        ops = [dist.P2POp(dist.isend, t, (rank + 1) % count) for t in sends]
+        ops += [dist.P2POp(dist.irecv, t, (rank - 1) % count) for t in recvs]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return tuple(r.to(t.device) for r, t in zip(recvs, tensors))
 
     def descriptor(self, n_rows: int, n_cols: int) -> PartitionDescriptor:
         """The global layout from one all-gather of every rank's (rows, cols):

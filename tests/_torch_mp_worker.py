@@ -1,16 +1,21 @@
 """One rank of a multi-process job of the PyTorch port on the CPU (gloo), run
-by tests/test_torch_multiprocess.py:
+by tests/test_torch_multiprocess.py and
+tests/test_torch_multiprocess_knn_forest.py:
 
-    python tests/_torch_mp_worker.py <rank> <world> <port> <workdir>
+    python tests/_torch_mp_worker.py <rank> <world> <port> <workdir> [fits | knn_forest]
 
-It joins the group through the SRML_TPU_* environment, takes rows
+It joins the group through the SRML_TPU_* environment and takes rows
 [cuts[rank], cuts[rank + 1]) of each data set in <workdir>/data.npz (its
-`<set>_cuts`), fits every case of `cases()` in-core and streamed at each
-batch size of STREAM_BATCH_ROWS, and writes <workdir>/rank<rank>.pkl: per
-(mode, case) the model attributes, the initial centers of a KMeans fit, and
-the collectives the fit made (comm.collective_ops and
-comm.collective_bytes); and per estimator of `unported()`, what its fit
-under the group raised and the collectives it made."""
+`<set>_cuts`). The "fits" job (the default) fits every case of `cases()`
+in-core and streamed at each batch size of STREAM_BATCH_ROWS, and writes
+<workdir>/rank<rank>.pkl: per (mode, case) the model attributes, the initial
+centers of a KMeans fit, and the collectives the fit made
+(comm.collective_ops and comm.collective_bytes); and per estimator of
+`unported()`, what its fit under the group raised and the collectives it
+made. The "knn_forest" job (`knn_forest_main`) fits NearestNeighbors and
+searches it (`knn_searches()`, both routes, every form) and fits the forests
+(`forest_cases()`), and records the same way what each call returned or
+raised and the collectives it made."""
 
 import datetime
 import os
@@ -51,17 +56,9 @@ def cases():
 
 def unported():
     """name -> estimator factory: the estimators with no multi-process fit."""
-    from spark_rapids_ml_torch.classification import RandomForestClassifier
     from spark_rapids_ml_torch.clustering import DBSCAN
-    from spark_rapids_ml_torch.knn import NearestNeighbors
-    from spark_rapids_ml_torch.regression import RandomForestRegressor
 
-    return {
-        "RandomForestClassifier": lambda: RandomForestClassifier(numTrees=2),
-        "RandomForestRegressor": lambda: RandomForestRegressor(numTrees=2),
-        "DBSCAN": lambda: DBSCAN(eps=1.0),
-        "NearestNeighbors": lambda: NearestNeighbors(k=2),
-    }
+    return {"DBSCAN": lambda: DBSCAN(eps=1.0)}
 
 
 def modes():
@@ -77,7 +74,7 @@ def _input(data, kind, rank):
     return pd.DataFrame({"features": list(X), "label": data["y"][lo:hi], "w": data["w"][lo:hi]})
 
 
-def main(rank: int, world: int, port: int, workdir: str) -> None:
+def main(rank: int, world: int, port: int, workdir: str, job: str = "fits") -> None:
     os.environ.update(SRML_TPU_COORDINATOR=f"127.0.0.1:{port}",
                       SRML_TPU_NUM_PROCESSES=str(world), SRML_TPU_PROCESS_ID=str(rank))
     from spark_rapids_ml_torch import config
@@ -88,6 +85,13 @@ def main(rank: int, world: int, port: int, workdir: str) -> None:
     if not bootstrap.init_from_env(timeout=datetime.timedelta(seconds=120)):
         raise RuntimeError("no multi-process group")
     part = partitioner.active_partitioner()
+    if job == "knn_forest":
+        results = knn_forest_main(rank, dict(np.load(os.path.join(workdir, "data.npz"))))
+        results.update(process_index=part.process_index, process_count=part.process_count)
+        with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(results, f)
+        bootstrap.reset_process_group()
+        return
     inits = []
     real_init = kmeans.gathered_init
 
@@ -128,5 +132,197 @@ def main(rank: int, world: int, port: int, workdir: str) -> None:
     bootstrap.reset_process_group()
 
 
+# ------------------------------------------------------------ kNN and forests
+
+KNN_K = 10
+KNN_FORMS = ("float32", "bfloat16", "int8")
+KNN_ROUTES = ("allgather", "ring")
+# the forests' shape: trees, depth, bins and seed of every case
+RF_TREES, RF_DEPTH, RF_BINS, RF_SEED = 3, 4, 16, 21
+
+
+def knn_searches():
+    """search -> (item set, query set, k, routes, forms, input kind): the
+    searches of the kNN job. "frame": pandas frames with no id column (the
+    default ids); "ids": frames with user ids; "array": numpy arrays."""
+    both, f32 = KNN_ROUTES, ("float32",)
+    return {
+        "default": ("items", "queries", KNN_K, both, KNN_FORMS, "frame"),
+        "array": ("items", "queries", KNN_K, both, f32, "array"),
+        "user_ids": ("items", "queries", KNN_K, both, f32, "ids"),
+        "duplicates": ("dups", "dup_queries", KNN_K, both, f32, "frame"),
+        "k_above_items": ("tiny", "queries", KNN_K, both, ("float32", "int8"), "frame"),
+        "queries_on_rank_0": ("items", "rank0_queries", KNN_K, both, f32, "frame"),
+    }
+
+
+def forest_cases():
+    """case -> (estimator kind, label set, params, replay the JAX package's
+    feature scores): the forests of the kNN / forest job."""
+    base = dict(numTrees=RF_TREES, maxDepth=RF_DEPTH, maxBins=RF_BINS, seed=RF_SEED)
+    return {
+        "gini_2": ("classifier", "y2", base, True),
+        "gini_3": ("classifier", "y3", base, True),
+        "entropy_2_no_bootstrap": (
+            "classifier", "y2", dict(base, impurity="entropy", bootstrap=False,
+                                     subsamplingRate=0.7), True),
+        "entropy_3": ("classifier", "y3", dict(base, impurity="entropy"), True),
+        "gini_2_subsample": ("classifier", "y2", dict(base, subsamplingRate=0.7), True),
+        "gini_2_weighted": ("classifier", "y2", dict(base, weightCol="w"), True),
+        "gini_3_missing_on_rank_0": ("classifier", "y3_late", base, True),
+        "gini_2_torch_scores": ("classifier", "y2", base, False),
+        "variance": ("regressor", "yreg", base, True),
+        "variance_no_bootstrap": (
+            "regressor", "yreg", dict(base, bootstrap=False, subsamplingRate=0.7), True),
+        "variance_weighted": ("regressor", "yreg", dict(base, weightCol="w"), True),
+    }
+
+
+def label_errors():
+    """case -> label set: classifier fits that must raise on every rank."""
+    return {"negative_on_last_rank": "y_negative", "class_missing_everywhere": "y_gap"}
+
+
+def forest_estimator(kind, params):
+    from spark_rapids_ml_torch.classification import RandomForestClassifier
+    from spark_rapids_ml_torch.regression import RandomForestRegressor
+
+    return (RandomForestClassifier if kind == "classifier" else RandomForestRegressor)(**params)
+
+
+def replay(trees, scores):
+    """Route trees._feature_scores through `scores`, in draw order."""
+    import torch
+
+    it = iter(scores)
+    trees._feature_scores = lambda gen, width, d, device: torch.from_numpy(next(it)).to(device)
+
+
+def jax_score_list(flat, n_trees, depth, d):
+    """The per-level (2^t, d) score arrays of `flat`, the rows of every
+    tree's levels stacked."""
+    out, at = [], 0
+    for _ in range(n_trees):
+        for t in range(depth):
+            out.append(flat[at : at + 2**t])
+            at += 2**t
+    return out
+
+
+def knn_input(X, lo, hi, kind, ids=None):
+    if kind == "array":
+        return X[lo:hi]
+    frame = pd.DataFrame({"features": list(X[lo:hi])})
+    if kind == "ids":
+        frame["id"] = ids[lo:hi]
+    return frame
+
+
+def _matrix(column, dtype):
+    """A column of per-row arrays as one (rows, k) array; (0, 0) with no rows."""
+    return np.stack(column.to_numpy()).astype(dtype) if len(column) else np.zeros((0, 0), dtype)
+
+
+def _outcome(call, partitioner):
+    """(what call() returned, or None, the exception's type name or None, the
+    collectives it made)."""
+    partitioner.reset_counters()
+    try:
+        out, raised = call(), None
+    except Exception as e:  # recorded, and asserted on by the test
+        out, raised = None, type(e).__name__
+    return out, raised, dict(partitioner.counters)
+
+
+def knn_forest_main(rank, sets):
+    from spark_rapids_ml_torch import config
+    from spark_rapids_ml_torch.knn import NearestNeighbors
+    from spark_rapids_ml_torch.models import from_attributes
+    from spark_rapids_ml_torch.models import knn as knn_model
+    from spark_rapids_ml_torch.ops import trees
+    from spark_rapids_ml_torch.parallel import partitioner
+
+    def rows(name):
+        return int(sets[f"{name}_cuts"][rank]), int(sets[f"{name}_cuts"][rank + 1])
+
+    results = {"knn": {}, "forest": {}, "errors": {}}
+    threshold = knn_model._RING_QUERY_THRESHOLD
+    for search, (items, queries, k, routes, forms, kind) in knn_searches().items():
+        X, Q = sets[f"{items}_X"], sets[f"{queries}_X"]
+        ilo, ihi = rows(items)
+        qlo, qhi = rows(queries)
+        est = NearestNeighbors(k=k, inputCol="features", **({"idCol": "id"} if kind == "ids" else {}))
+        partitioner.reset_counters()
+        model = est.fit(knn_input(X, ilo, ihi, kind, sets[f"{items}_ids"]))
+        comm = dict(partitioner.counters)
+        results["knn"][(search, "fit")] = {"comm": comm,
+                                           "item_ids": model.get_model_attributes()["item_ids"]}
+        for route in routes:
+            knn_model._RING_QUERY_THRESHOLD = threshold if route == "allgather" else 1
+            for form in forms:
+                config.set("knn_precision", form)
+                q_in = knn_input(Q, qlo, qhi, kind, sets[f"{queries}_ids"])
+                partitioner.reset_counters()
+                _, q_out, knn_df = model.kneighbors(q_in)
+                comm = dict(partitioner.counters)
+                joined = model.exactNearestNeighborsJoin(q_in, distCol="dist")
+                cols = list(knn_df.columns)
+                results["knn"][(search, route, form)] = {
+                    "comm": comm, "columns": cols,
+                    "query_ids": knn_df[cols[0]].to_numpy(),
+                    "ids": _matrix(knn_df["indices"], np.int64),
+                    "distances": _matrix(knn_df["distances"], np.float32),
+                    "query_frame_ids": (q_out[cols[0][len("query_"):]].to_numpy()
+                                        if isinstance(q_out, pd.DataFrame) else None),
+                    "join": joined.to_numpy(),
+                }
+        knn_model._RING_QUERY_THRESHOLD = threshold
+        config.unset("knn_precision")
+    # a NaN query on the last rank; a model from attributes under the group
+    X, Q = sets["items_X"], sets["queries_X"].copy()
+    ilo, ihi = rows("items")
+    qlo, qhi = rows("queries")
+    model = NearestNeighbors(k=KNN_K, inputCol="features").fit(knn_input(X, ilo, ihi, "frame"))
+    if rank == len(sets["queries_cuts"]) - 2:
+        Q[qhi - 1, 3] = np.nan
+    _, raised, comm = _outcome(lambda: model.kneighbors(knn_input(Q, qlo, qhi, "frame")),
+                               partitioner)
+    results["errors"]["nan_query"] = {"raised": raised, "comm": comm}
+    carried = from_attributes("nearest_neighbors", {"item_features": X, "item_ids": np.arange(len(X))},
+                              device="cpu")
+    _, raised, comm = _outcome(lambda: carried.kneighbors(knn_input(X, 0, 5, "frame")), partitioner)
+    results["errors"]["from_attributes"] = {"raised": raised, "comm": comm}
+
+    real_scores = trees._feature_scores
+    X = sets["rf_X"]
+    lo, hi = rows("rf")
+    flat = sets["rf_scores"]
+    for case, (kind, label, params, replayed) in forest_cases().items():
+        trees._feature_scores = real_scores
+        if replayed:
+            replay(trees, jax_score_list(flat, RF_TREES, RF_DEPTH, X.shape[1]))
+        frame = pd.DataFrame({"features": list(X[lo:hi]), "label": sets[f"rf_{label}"][lo:hi],
+                              "w": sets["rf_w"][lo:hi]})
+        partitioner.reset_counters()
+        model = forest_estimator(kind, params).fit(frame)
+        comm = dict(partitioner.counters)
+        partitioner.reset_counters()
+        out = model.transform(frame) if hi > lo else None
+        results["forest"][case] = {
+            "attrs": model.get_model_attributes(), "comm": comm,
+            "transform_comm": dict(partitioner.counters),
+            "prediction": None if out is None else out["prediction"].to_numpy(),
+        }
+    trees._feature_scores = real_scores
+    for case, label in label_errors().items():
+        frame = pd.DataFrame({"features": list(X[lo:hi]), "label": sets[f"rf_{label}"][lo:hi]})
+        _, raised, comm = _outcome(
+            lambda: forest_estimator("classifier", dict(numTrees=1, maxDepth=2)).fit(frame),
+            partitioner)
+        results["errors"][case] = {"raised": raised, "comm": comm}
+    return results
+
+
 if __name__ == "__main__":
-    main(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    main(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+         *(sys.argv[5:6] or ["fits"]))

@@ -3,9 +3,8 @@
 SRML_TPU_* environment rendezvous and the file-based allgather control plane
 (as tests/test_multihost_bootstrap.py drives the JAX package's) in spawned
 ranks, the single-process no-op, adopting a default group the caller already
-initialised, reset, the backend rule, a rendezvous that never completes, and
-ops/ingest.py's process_local_span / stage_local_block against the JAX
-package's with emulated ranks."""
+initialised, reset, the backend rule, a rendezvous that never completes, the
+shared card's stream threshold and each rank's share of a streamed batch."""
 
 import datetime
 import json
@@ -17,14 +16,11 @@ import textwrap
 from pathlib import Path
 from types import SimpleNamespace
 
-import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
 
-from spark_rapids_ml_tpu.ops import ingest as jax_ingest
 from spark_rapids_ml_torch import config
-from spark_rapids_ml_torch.ops import ingest
 from spark_rapids_ml_torch.parallel import bootstrap, partitioner
 
 REPO = Path(__file__).resolve().parents[1]
@@ -217,37 +213,7 @@ def test_a_rendezvous_that_never_completes_raises(tmp_path):
     assert res.returncode != 0 and "GROUP UP" not in res.stdout, res.stdout + res.stderr
 
 
-class _Ranks:
-    """An emulated rank of `count`: what process_local_span reads."""
-
-    def __init__(self, index, count):
-        self.process_index, self.process_count = index, count
-
-
-@pytest.mark.parametrize("count", [1, 2, 3, 7])
-@pytest.mark.parametrize("s,e", [(0, 10), (5, 5), (3, 1003), (0, 2), (100, 101)])
-def test_process_local_span_matches_the_jax_package(count, s, e):
-    spans = [ingest.process_local_span(s, e, _Ranks(r, count)) for r in range(count)]
-    assert spans == [jax_ingest.process_local_span(s, e, _Ranks(r, count)) for r in range(count)]
-    # contiguous, disjoint, covering [s, e)
-    assert spans[0][0] == s and spans[-1][1] == max(s, e)
-    assert all(b == c for (_, b), (c, _) in zip(spans, spans[1:]))
-
-
-@pytest.mark.parametrize("count", [1, 3])
-@pytest.mark.parametrize("dtype", [np.float32, np.float64])
-def test_stage_local_block_matches_the_jax_package(count, dtype):
-    arr = np.random.default_rng(0).normal(size=(1001, 5)).astype(np.float32)
-    for r in range(count):
-        got = ingest.stage_local_block(arr, 7, 1000, dtype, partitioner=_Ranks(r, count))
-        want = jax_ingest.stage_local_block(arr, 7, 1000, dtype, partitioner=_Ranks(r, count))
-        # the same rows, a view where the device casts the dtype exactly
-        np.testing.assert_array_equal(got, want)
-        assert got.dtype == want.dtype and np.shares_memory(got, arr) == np.shares_memory(want, arr)
-
-
 def test_the_active_partitioner_is_one_rank_without_a_group(no_rank_env):
-    assert ingest.process_local_span(4, 9) == (4, 9)
     part = partitioner.active_partitioner()
     assert isinstance(part, partitioner.Partitioner)
     assert (part.process_index, part.process_count, part.is_multiprocess) == (0, 1, False)

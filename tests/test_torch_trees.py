@@ -229,6 +229,36 @@ def test_build_tree_variance_matches_within_tolerance():
     _assert_heap(got, want, "variance")
 
 
+@pytest.mark.parametrize("depth", [0, 3])
+def test_root_stats_are_exact_past_2_24_in_any_row_order(depth):
+    # integer stats whose root sums pass 2^24 while every bin sum stays below
+    # it: the root's stats are the exact sums rounded once, so every row
+    # order grows the same tree (the rule a fit across ranks relies on)
+    rng = np.random.default_rng(21)
+    n, d, nbins = 512, 4, 16
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    w = rng.integers(1, 1 << 18, n) | 1  # odd weights: partial sums past 2^24 round
+    cls = (X[:, 0] > 0).astype(np.int64)
+    stats = np.zeros((n, 2), np.float32)
+    stats[np.arange(n), cls] = w
+    exact = np.bincount(cls, weights=w, minlength=2)
+    edges = torch.from_numpy(trees.quantile_bin_edges(torch.from_numpy(X), nbins))
+    bins = trees.bin_features(torch.from_numpy(X), edges).numpy()
+    most = max(np.bincount(bins[:, f], weights=w).max() for f in range(d))
+    assert exact.min() > 2**24 and most < 2**24
+    heaps = []
+    for order in (np.arange(n), rng.permutation(n), np.arange(n)[::-1].copy()):
+        Xb = trees.bin_features(torch.from_numpy(X[order]), edges)
+        heaps.append(trees.build_tree(
+            Xb, torch.from_numpy(stats[order]), edges, torch.Generator(), max_depth=depth,
+            nbins=nbins, impurity="gini", k_features=d, min_instances=1, min_info_gain=0.0))
+    root = np.float32(exact.astype(np.float32).sum(dtype=np.float32))
+    assert heaps[0]["node_weight"][1].item() == root
+    for h in heaps[1:]:
+        for key in HEAP:
+            np.testing.assert_array_equal(h[key].numpy(), heaps[0][key].numpy(), err_msg=key)
+
+
 def test_predict_forest_matches_and_routes_nan_left():
     X, stats = _class_data(n=1000, d=5, seed=13)
     kw = dict(n_trees=4, max_depth=4, max_bins=16, impurity="gini", feature_subset=5,
