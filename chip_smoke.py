@@ -77,8 +77,9 @@ non-zero exit code; nothing is caught):
      cut from the north star's 1B to fit the run's time limit), and KMeans with
      a weight column (the weighted Lloyd form) on the same rows;
    * LinearRegression on the same X with y = X.beta + noise: OLS with
-     standardization, then regParam=0.01, elasticNetParam=0.5; each fit,
-     transform and evaluate, the coefficients held to f64 solves on the card;
+     standardization, then regParam=0.01, elasticNetParam=0.5; each fit
+     and evaluate (which transforms the frame through the entry point), the
+     coefficients held to f64 solves on the card;
    * DBSCAN on a 20-blob mixture of 262,144 x 32 f32 with 1% uniform noise
      (cut from the north star's rows because each label-propagation round is an
      O(n^2) scan in plain PyTorch), its labels held to a run with the plain count;
@@ -101,8 +102,8 @@ non-zero exit code; nothing is caught):
      version equal to the kernel fit's first 2 trees bit for bit (its levels
      held to plain before that, on 2 and 3 integer stats, and on the
      regressor's real stats three launches bit-equal); then
-     RandomForestRegressor on the same X with y = X.beta + noise: fit,
-     transform, evaluate, its first 2 trees' predictions held to a plain-route
+     RandomForestRegressor on the same X with y = X.beta + noise: fit and
+     evaluate (its transform), its first 2 trees' predictions held to a plain-route
      fit's (RF_REG_RTOL, RF_REG_MOVED). These run last, after the earlier paths' data is
      freed, with their own phases 2b (every level of a tree held to plain) and
      4 (times at widths 1 and 32).
@@ -172,10 +173,37 @@ non-zero exit code; nothing is caught):
      3's first MP_RF_TREES trees bit for bit, the regressor split alike at
      every node whose best gain is separated from its second best
      (separated_structure) and its predictions under phase 3's regressor
-     rule; RF_DEPTH histogram launches a tree on each rank. A rank that
+     rule; RF_DEPTH histogram launches a tree on each rank. DBSCAN across
+     the ranks (rank_dbscan, check_mp_dbscan; ranks of their own, job
+     "dbscan"): each rank clusters its 60/40 share of phase 3's 262,144 x
+     32 rows through DBSCAN(...).fit(...).transform(...), the ring of
+     ops/dbscan.py, over gloo on one card and over NCCL one card a rank
+     where two cards exist. The borderline rule (check_mp_dbscan): a pair
+     is borderline when its f64 d2 lies within DB_BAND_ULPS units of
+     2^-23 (|a|² + |b|²) of eps², a band held every run to cover twice the
+     library f32 d2 error and the count kernel's (dbscan_band). The
+     eps-counts summed over the ring's hops equal phase 3's one-launch
+     counts but by a row's borderline pairs, a core flag flips only at a
+     pair's end, the labels equal phase 3's single-process transform as
+     numbers at every row but the ends and the clusters holding a flipped
+     row, and at most DB_MOVED_SHARE of the rows differ (each count
+     logged); the same global label vector compacted on both ranks, each
+     rank's labels its slice of it, phase 3's propagation rounds on both
+     ranks, the count kernel launched once a hop on each rank, the ring's
+     collectives (dbscan_ring_ops). A rank that
      fails or outruns MP_TIMEOUT fails the run after the other rank is
      killed; every rank logs each call's seconds, collectives, bytes and
      spans.
+   * phase 3p, persistence (phase_persist): PCA, KMeans, LinearRegression
+     (OLS, elastic net) and DBSCAN after phase 3's fits, both forests after
+     theirs: each model and an estimator with its params saved in the JAX
+     package's directory format (core/persistence.py) and loaded back, each
+     save and load timed with its bytes on disk; the loaded instance the
+     same class, uid and params, a model's attributes bit for bit; its
+     transform of a prefix of the rows (PERSIST_ROWS of the main X and of
+     the forest rows, PERSIST_DB_ROWS of DBSCAN's) the original's bits, the
+     reloaded KMeansModel launching assign and DBSCAN count; each forest's
+     toJSON -> fromJSON model predicting the same bits.
    Every phase sets the six streaming keys (pin_in_core: streaming and the
    cache off, for the phases that do not stream), so none depends on a
    default.
@@ -456,6 +484,81 @@ def dbscan_blobs(n: int, d: int, k: int, seed: int):
     X[n - n_noise :] = rng.uniform(-16.0, 16.0, (n_noise, d))
     perm = rng.permutation(n)
     return X[perm], truth[perm]
+
+
+# ----------------------------------------------------- phase 3p: persistence
+
+PERSIST_ROWS = 1 << 20  # rows of the main X (and of the forest rows) the reloaded models transform
+PERSIST_DB_ROWS = 1 << 16  # rows of the DBSCAN data the reloaded DBSCAN model clusters
+
+
+def dir_bytes(path) -> int:
+    """Bytes of the files in a saved directory."""
+    import os
+
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def output_columns(out) -> dict:
+    """The columns of a transform's frame, a column of per-row arrays stacked."""
+    return {c: (np.stack(out[c].to_numpy()) if out[c].dtype == object else out[c].to_numpy())
+            for c in out.columns}
+
+
+def phase_persist(torch, run_path, path_counts, items: dict, tag: str = "") -> None:
+    """Phase 3p: each model of phase 3 and an estimator with its params saved
+    (core/persistence.py, the JAX package's directory format) to a directory
+    beside this script and loaded back, each save and load timed with its
+    bytes on disk; the loaded instance the same class, uid and params, a
+    model's attributes bit for bit; the loaded model's transform of `rows`
+    (a prefix of phase 3's rows) bit-equal to the original's, each through
+    run_path (the launch counters zeroed just before it), the loaded one
+    launching `kernel` where one is named. A forest also goes through
+    toJSON -> fromJSON, which must predict the same bits. `items`: label ->
+    (model, estimator, rows, kernel or None, JSON import args or None)."""
+    workdir = mp_workdir("phase3p" + tag)
+    try:
+        for label, (model, est, rows, kernel, json_args) in items.items():
+            loaded = {}
+            for kind, obj in (("model", model), ("estimator", est)):
+                path = str(workdir / f"{label.replace(' ', '_').replace(',', '')}_{kind}")
+                t0 = time.perf_counter()
+                obj.save(path)
+                t_save = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                back = type(obj).load(path)
+                t_load = time.perf_counter() - t0
+                log(f"  {label} {kind}: save {t_save:.4f} s, load {t_load:.4f} s, "
+                    f"{dir_bytes(path)} bytes on disk")
+                require(type(back) is type(obj) and back.uid == obj.uid
+                        and back.extractParamMap() == obj.extractParamMap()
+                        and back._torch_params == obj._torch_params,
+                        f"{label} {kind}: the loaded instance differs in class, uid or params")
+                if kind == "model":
+                    require(bits_equal(back.get_model_attributes(), obj.get_model_attributes()),
+                            f"{label}: the loaded model's attributes differ")
+                loaded[kind] = back
+            n = len(rows)
+            want = output_columns(run_path(f"{label} transform, {n} rows",
+                                           lambda: model.transform(rows)))
+            got = output_columns(run_path(f"{label} transform, {n} rows, loaded",
+                                          lambda: loaded["model"].transform(rows)))
+            require(bits_equal(got, want), f"{label}: the loaded model transforms other bits")
+            if kernel is not None:
+                require(path_counts[f"{label} transform, {n} rows, loaded"][kernel] >= 1,
+                        f"{label}: the loaded model's transform launched no {kernel}")
+            note = f", launching {kernel}" if kernel is not None else ""
+            if json_args is not None:
+                # the dump carries the trees; the params (input columns) come from the model
+                rebuilt = model._copyValues(type(model).fromJSON(model.toJSON(), **json_args))
+                via_json = output_columns(run_path(f"{label} transform, {n} rows, from JSON",
+                                                   lambda: rebuilt.transform(rows)))
+                require(bits_equal(via_json, want),
+                        f"{label}: the toJSON -> fromJSON forest predicts other bits")
+                note += "; toJSON -> fromJSON predicts the same bits"
+            log(f"  {label}: the loaded model transforms {n} rows to the same bits{note}")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
 
 
 # ------------------------------------------------------------ comparisons
@@ -1685,6 +1788,33 @@ def phase_multiprocess_forest(torch, workdir, clf_attrs, reg_attrs, launches, de
                 require(moved <= RF_REG_MOVED, f"{run}: regressor: {moved} of rows moved")
 
 
+def evaluate_timed(torch, run_path, stages, path_counts, name, model, frame):
+    """run_path(f"{name} evaluate", ...) of model.evaluate(frame), with the
+    transform that evaluate makes timed on its own under f"{name} transform":
+    its seconds (the card synchronized at both ends), evaluate's spans (all of
+    them the transform's: the metrics are host work outside the spans) and
+    evaluate's launch counts, which are not added to the totals again."""
+    seen, call = [], model.transform
+
+    def transform(dataset):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = call(dataset)
+        torch.cuda.synchronize()
+        seen.append(time.perf_counter() - t0)
+        return out
+
+    model.transform = transform
+    try:
+        ev = run_path(f"{name} evaluate", lambda: model.evaluate(frame))
+    finally:
+        del model.transform
+    require(len(seen) == 1, f"{name} evaluate made {len(seen)} transforms")
+    stages[f"{name} transform"] = (seen[0], stages[f"{name} evaluate"][1])
+    path_counts[f"{name} transform"] = path_counts[f"{name} evaluate"]
+    return ev
+
+
 def phase_forest(torch, run_path, stages, path_counts, launches, reports) -> list:
     """RandomForestClassifier and RandomForestRegressor at N_RF x D_RF: the
     histogram kernels against plain at the main shape (2b), both estimators'
@@ -1857,10 +1987,11 @@ def phase_forest(torch, run_path, stages, path_counts, launches, reports) -> lis
 
     df["label"] = yreg
     reg = run_path("RF regressor fit", lambda: RandomForestRegressor(**params).fit(df))
-    rout = run_path("RF regressor transform", lambda: reg.transform(df))
-    rev = run_path("RF regressor evaluate", lambda: reg.evaluate(df))
-    rpred = rout["prediction"].to_numpy()
-    del rout
+    # evaluate's predictions frame is the transform's output (module header)
+    rev = evaluate_timed(torch, run_path, stages, path_counts, "RF regressor", reg, df)
+    rpred = rev.predictions["prediction"].to_numpy()
+    rmse_ev, r2_ev = rev.rootMeanSquaredError, rev.r2
+    del rev  # its predictions frame holds a copy of the 50M rows
     require(rpred.shape == (n,) and np.isfinite(rpred).all(), "regressor transform output")
     rmse_direct = float(np.sqrt(np.mean((rpred.astype(np.float64) - yreg) ** 2)))
     ystd = float(yreg.std())
@@ -1880,17 +2011,26 @@ def phase_forest(torch, run_path, stages, path_counts, launches, reports) -> lis
     rmse_p2 = float(((pp.double() - y_dev) ** 2).mean().sqrt())
     n_diff = int((first_trees(ra, RF_PLAIN_TREES)["threshold"]
                   != first_trees(plain_r, RF_PLAIN_TREES)["threshold"]).sum())
-    log(f"  regressor: rmse {rev.rootMeanSquaredError:.6f} (from its predictions "
-        f"{rmse_direct:.6f}; label std {ystd:.4f}), r2 {rev.r2:.6f}; first {RF_PLAIN_TREES} "
+    log(f"  regressor: rmse {rmse_ev:.6f} (from its predictions "
+        f"{rmse_direct:.6f}; label std {ystd:.4f}), r2 {r2_ev:.6f}; first {RF_PLAIN_TREES} "
         f"trees against the plain-route fit: arrays equal {same}, {n_diff} heap slots with "
         f"another threshold; rows whose prediction differs by more than {RF_REG_RTOL} of max "
         f"|prediction|: {100 * moved:.4f}% (allowed {100 * RF_REG_MOVED:g}%); 2-tree rmse kernel "
         f"{rmse_k2:.6f}, plain {rmse_p2:.6f}")
     require(moved <= RF_REG_MOVED, f"regressor: {moved} of rows moved against the plain route")
     require(abs(rmse_k2 - rmse_p2) <= 1e-3 * rmse_p2, "regressor: 2-tree rmse differs from plain")
-    require(abs(rev.rootMeanSquaredError - rmse_direct) <= 1e-6 * rmse_direct, "regressor rmse")
-    require(rev.rootMeanSquaredError < ystd, "regressor does no better than the label mean")
-    del y_dev, rpred, df, X
+    require(abs(rmse_ev - rmse_direct) <= 1e-6 * rmse_direct, "regressor rmse")
+    require(rmse_ev < ystd, "regressor does no better than the label mean")
+    log(f"phase 3p (forest): save and load of both forests and their estimators, the loaded "
+        f"models transforming the first {PERSIST_ROWS} rows; toJSON -> fromJSON")
+    prefix = df.iloc[:PERSIST_ROWS]
+    phase_persist(torch, run_path, path_counts, {
+        "RF classifier": (clf, RandomForestClassifier(**params), prefix, None,
+                          {"n_features": D_RF, "num_classes": 2}),
+        "RF regressor": (reg, RandomForestRegressor(**params), prefix, None,
+                         {"n_features": D_RF}),
+    }, tag="_forest")
+    del y_dev, rpred, df, X, prefix
     gc.collect()
     torch.cuda.empty_cache()
     try:
@@ -1903,7 +2043,7 @@ def phase_forest(torch, run_path, stages, path_counts, launches, reports) -> lis
         require(pc[label]["node_bin_hist"] == RF_TREES * RF_DEPTH,
                 f"{label}: {pc[label]['node_bin_hist']} node x bin launches, not "
                 f"{RF_TREES * RF_DEPTH}")
-    for label in ("RF classifier transform", "RF regressor transform", "RF regressor evaluate"):
+    for label in ("RF classifier transform", "RF regressor transform"):
         require(pc[label]["node_bin_hist"] == 0, f"{label} launched the histogram kernel")
     for label in ("RF classifier fit", "RF classifier transform", "RF regressor fit",
                   "RF regressor transform", "RF regressor evaluate"):
@@ -2575,6 +2715,18 @@ MP_KNN_SMALL_QUERIES = 100  # the empty-rank case's queries: its X's first rows
 # RF_BINS, with numTrees cut from RF_TREES to MP_RF_TREES for the time limit;
 # held to the first MP_RF_TREES trees of phase 3's single-process fits
 MP_RF_TREES = 4
+# DBSCAN across the ranks: phase 3's 262,144 x 32 rows, MP_SHARE / the rest,
+# held to phase 3's single-process transform under the borderline rule
+# (check_mp_dbscan): a pair is borderline when its f64 d2 lies within
+# DB_BAND_ULPS * 2^-23 * (|a|^2 + |b|^2) of eps^2, and only such a pair may fall
+# on either side of eps^2 in the ranks' shapes and in one process's. The band
+# is held, every run, to cover twice the two d2 errors it stands for
+# (dbscan_band): the library f32 d2 of the min-label scan and the count
+# kernel's 3xTF32 d2. 16 units is d u (|a|^2 + |b|^2) at d = 32, u = 2^-24: the
+# f32 FMA dot product's worst rounding bound on 2 a.b
+DB_BAND_ULPS = 16.0
+DB_BAND_SAMPLE = 4096  # rows whose f32 d2 against every row are read for the band
+DB_MOVED_SHARE = 1e-3  # the most rows whose label may differ from one process's
 
 
 def knn10_queries(Xh, true_centers):
@@ -2653,9 +2805,134 @@ def multiprocess_main() -> int:
     phase_multiprocess(torch, Xh, yh, w_h, X, {
         "pca": pca, "pca_streamed": pca_s, "beta64": beta64.cpu().numpy(),
         "en64": en64["coefficients"], "ols": ols.coefficients, "en": en.coefficients,
-        "ols_streamed": ols_s.coefficients, "q10": Q10, "knn": knn_single_refs(Xh, Q10)})
+        "ols_streamed": ols_s.coefficients, "q10": Q10, "knn": knn_single_refs(Xh, Q10),
+        "db": dbscan_single_ref(torch)})
     log("phase 3m passed")
     return 0
+
+
+def dbscan_mp_main() -> int:
+    """Phase 3m's DBSCAN alone on the card, with the single-process transform
+    it is held to made first (dbscan_single_ref, the band's readings with it):
+    two ranks over gloo on one card, then over NCCL one card a rank where two
+    cards exist (about two minutes of command time on one card):
+    `python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.dbscan_mp_main())'`."""
+    import torch
+
+    from spark_rapids_ml_torch.ops import _cuda
+
+    require(torch.cuda.is_available(), "phase 3m needs a CUDA card")
+    log(f"card: {nvidia_smi()}; {torch.cuda.device_count()} card(s)")
+    _cuda.build()
+    t0 = time.perf_counter()
+    ref = dbscan_single_ref(torch)
+    log(f"  phase 3's DBSCAN transform and its band: {time.perf_counter() - t0:.1f} s, "
+        f"{ref['rounds']} rounds")
+    workdir = mp_workdir("phase3m_dbscan")
+    np.save(workdir / "db_X.npy", ref["X"])
+    runs = [("gloo, one card", "0")]
+    if torch.cuda.device_count() >= MP_WORLD:
+        runs.append(("NCCL, one card a rank", None))
+    else:
+        log(f"  the NCCL run (one rank a card) did not take place: "
+            f"{torch.cuda.device_count()} card(s)")
+    for run, visible in runs:
+        t0 = time.perf_counter()
+        ranks = run_ranks(workdir, MP_WORLD, "cuda", visible, job="dbscan")
+        log(f"  run {run}, DBSCAN: {time.perf_counter() - t0:.1f} s with the ranks' start")
+        check_mp_dbscan(run, ranks, ref, None, True, "gloo" if visible is not None else "nccl")
+    log("phase 3m DBSCAN passed")
+    return 0
+
+
+def dbscan_single_ref(torch) -> dict:
+    """Phase 3's single-process DBSCAN transform that phase 3m is held to,
+    made anew (phase 3m alone): its rows, labels and rounds, the count
+    kernel's counts, and the rule's band (dbscan_band)."""
+    from spark_rapids_ml_torch.clustering import DBSCAN
+    from spark_rapids_ml_torch.ops import dbscan as dbscan_mod
+    from spark_rapids_ml_torch.ops.count import fused_count_below
+
+    Xdb_h, _ = dbscan_blobs(N_DB, D_DB, K_MAIN, SEED)
+    model = DBSCAN(eps=DB_EPS, min_samples=DB_MIN_SAMPLES).fit(Xdb_h)
+    rounds = dbscan_mod._propagate_labels.rounds
+    labels = model.transform(Xdb_h)["prediction"].to_numpy()
+    rounds = dbscan_mod._propagate_labels.rounds - rounds
+    Xdb = torch.from_numpy(Xdb_h).cuda()
+    valid = torch.ones(N_DB, dtype=torch.bool, device="cuda")
+    counts = fused_count_below(Xdb, Xdb, valid, DB_EPS * DB_EPS)
+    return {"X": Xdb_h, "labels": labels, "rounds": rounds, "counts": counts.long().cpu().numpy(),
+            **dbscan_band(torch, Xdb, counts, mp_rows(N_DB, 0)[1])}
+
+
+def dbscan_band(torch, X, counts, cut: int) -> dict:
+    """The borderline rule's band on phase 3's DBSCAN rows X (on the card):
+    "near", each row's pairs whose f64 d2 (of the f32 rows) lies within
+    DB_BAND_ULPS units of eps^2, a unit being 2^-23 * (|a|^2 + |b|^2); and the
+    two readings, in those units, that the band must cover twice over:
+    "f32", the largest error against f64 of the library f32 d2 that the
+    min-label scan takes (ops/knn.py::_block_sq_dists) for DB_BAND_SAMPLE rows
+    spread over X against every row, at one process's shape and at the
+    ring's (rows [0, cut) and the rest padded to as many); "count", the least
+    band that explains the count kernel's `counts` against the exact f64
+    counts at every row (a row counted m too many has at least m pairs above
+    eps^2 counted: the m-th nearest above; too few, below). Fails when a
+    reading exceeds half the band."""
+    from spark_rapids_ml_torch.ops.knn import _block_sq_dists
+
+    t0 = time.perf_counter()
+    n, eps2 = X.shape[0], DB_EPS * DB_EPS
+    X64 = X.double()
+    sq = (X64 * X64).sum(1)
+    exact = torch.empty(n, dtype=torch.int64, device=X.device)
+    near = torch.empty_like(exact)
+    step = max(1, (1 << 27) // n)
+
+    def offsets(rows, lo=0, hi=n):
+        """(f64 d2 - eps2) / unit of `rows` (indices) against rows [lo, hi)."""
+        d2 = (sq[rows, None] - 2.0 * (X64[rows] @ X64[lo:hi].T) + sq[None, lo:hi]).clamp_min(0.0)
+        return (d2 - eps2) / (2.0**-23 * (sq[rows, None] + sq[None, lo:hi]))
+
+    every = torch.arange(n, device=X.device)
+    for s in range(0, n, step):
+        r = offsets(every[s : s + step])
+        exact[s : s + step] = (r <= 0).sum(1)
+        near[s : s + step] = (r.abs() <= DB_BAND_ULPS).sum(1)
+    delta = counts.long() - exact
+    wrong = delta.nonzero()[:, 0]
+    count_read = 0.0
+    for b in range(0, len(wrong), step):
+        rows = wrong[b : b + step]
+        r, m = offsets(rows), delta[rows]
+        # too many: the pairs above eps2 (r > 0) by distance; too few: those at or below
+        side = torch.where((m > 0)[:, None] == (r > 0), r.abs(), torch.inf)
+        kth = torch.topk(side, int(m.abs().max()), dim=1, largest=False).values
+        count_read = max(count_read, float(kth.gather(1, (m.abs() - 1)[:, None]).max()))
+    sample = every[:: max(1, n // DB_BAND_SAMPLE)][:DB_BAND_SAMPLE]
+    shard = torch.zeros((cut, X.shape[1]), dtype=X.dtype, device=X.device)
+    shard[: n - cut] = X[cut:]
+    f32_read = 0.0
+    for lo, items in ((0, X), (0, X[:cut]), (cut, shard)):
+        hi = min(n, lo + items.shape[0])
+        x2 = torch.sum(items * items, dim=1)
+        for b in range(0, len(sample), step):
+            rows = sample[b : b + step]
+            d2 = _block_sq_dists(X[rows], items, x2)[:, : hi - lo].double()
+            d64 = offsets(rows, lo, hi)  # in units: back to d2 below
+            unit = 2.0**-23 * (sq[rows, None] + sq[None, lo:hi])
+            f32_read = max(f32_read, float(((d2 - eps2) / unit - d64).abs().max()))
+    ends = int((near > 0).sum())
+    log(f"  DBSCAN band: {DB_BAND_ULPS:g} units of 2^-23 (|a|^2 + |b|^2) about eps^2; readings "
+        f"in those units: f32 library d2 {f32_read:.4f} (max over {len(sample)} rows x {n}, at "
+        f"one process's and the ring's shapes), count kernel {count_read:.4f} (the least band "
+        f"explaining its counts against f64 at every row; {len(wrong)} rows off f64 by "
+        f"{int(delta.abs().sum())}); rows at an end of a borderline pair {ends} "
+        f"({ends / n:.4%}), borderline pairs {int(near.sum()) // 2}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    require(f32_read <= DB_BAND_ULPS / 2 and count_read <= DB_BAND_ULPS / 2,
+            f"DBSCAN band {DB_BAND_ULPS}: a d2 error reading exceeds half of it "
+            f"(f32 {f32_read}, count {count_read})")
+    return {"near": near.cpu().numpy(), "band_reads": {"f32": f32_read, "count": count_read}}
 
 
 def launch_counters() -> dict:
@@ -2875,7 +3152,8 @@ def rank_main(argv) -> int:
     JOB "main" (the default) fits MP_FITS on its rows of WORKDIR/{X,y,w}.npy
     (memory-mapped) in-core and streamed, runs the kNN searches (rank_knn),
     then the empty-rank case; JOB "forest" fits the forests on its rows of
-    WORKDIR/rf_*.npy (rank_forest). It writes WORKDIR/rank<RANK>.pkl."""
+    WORKDIR/rf_*.npy (rank_forest); JOB "dbscan" clusters its rows of
+    WORKDIR/db_X.npy (rank_dbscan). It writes WORKDIR/rank<RANK>.pkl."""
     import datetime
     import os
     import pickle
@@ -2903,10 +3181,11 @@ def rank_main(argv) -> int:
 
     counters = launch_counters()
     pin_in_core(torch_config)
-    if job == "forest":
+    if job in ("forest", "dbscan"):
+        run = rank_forest if job == "forest" else rank_dbscan
         out = {"rank": rank, "backend": torch.distributed.get_backend(), "device": str(dev),
                "card": torch.cuda.get_device_name(dev) if on_card else "cpu",
-               "forest": rank_forest(torch, rank, workdir, counters, sync)}
+               job: run(torch, rank, workdir, counters, sync)}
         with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
         bootstrap.reset_process_group()
@@ -3051,6 +3330,141 @@ def log_rank_call(rank: int, label: str, f: dict) -> None:
         f"collectives, {f['comm']['comm.collective_bytes']} bytes; spans {spans}")
 
 
+def cluster_keys(labels):
+    """Each row's cluster id, a noise row its own (-1 - row)."""
+    return np.where(labels >= 0, labels, -1 - np.arange(len(labels)))
+
+
+def disagreeing_rows(a, b):
+    """Bool mask of the rows whose cluster (a noise row: itself) is not the
+    same set of rows in labelings a and b."""
+    _, ia, size_a = np.unique(cluster_keys(a), return_inverse=True, return_counts=True)
+    _, ib, size_b = np.unique(cluster_keys(b), return_inverse=True, return_counts=True)
+    _, pair, size_ab = np.unique(np.stack([ia, ib], 1), axis=0, return_inverse=True,
+                                 return_counts=True)
+    both = size_ab[pair.reshape(-1)]
+    return (both != size_a[ia]) | (both != size_b[ib])
+
+
+def dbscan_ring_ops(world: int, rounds: int) -> int:
+    """Collectives of one euclidean DBSCAN transform across `world` ranks that
+    converged in `rounds` rounds (spark_rapids_ml_torch/ops/dbscan.py's
+    header): the descriptor, the count's shifts and the core flags'
+    all-gather, each round's shifts and all-gather, the labels' all-gather."""
+    return 1 + world + rounds * world + 1
+
+
+def rank_dbscan(torch, rank, workdir, counters, sync) -> dict:
+    """Phase 3m's DBSCAN on one rank: its MP_SHARE share of phase 3's rows
+    (WORKDIR/db_X.npy) through DBSCAN(...).fit(...).transform(...), with the
+    propagation rounds and the global label vector that the rank compacted."""
+    import os
+
+    from spark_rapids_ml_torch.clustering import DBSCAN
+    from spark_rapids_ml_torch.ops import dbscan as dbscan_mod
+
+    Xdb = np.load(os.path.join(workdir, "db_X.npy"), mmap_mode="r")
+    lo, hi = mp_rows(Xdb.shape[0], rank)
+    Xl = np.ascontiguousarray(Xdb[lo:hi])
+    compact, count, seen, hops = dbscan_mod._compact_labels, dbscan_mod.fused_count_below, [], []
+
+    def recorded(out):
+        labels = compact(out)
+        seen.append(labels)
+        return labels
+
+    def counted(*args):
+        c = count(*args)
+        hops.append(c.cpu().numpy())
+        return c
+
+    model = DBSCAN(eps=DB_EPS, min_samples=DB_MIN_SAMPLES).fit(Xl)
+    rounds = dbscan_mod._propagate_labels.rounds
+    dbscan_mod._compact_labels, dbscan_mod.fused_count_below = recorded, counted
+    try:
+        out, f = rank_call(torch, counters, sync, lambda: model.transform(Xl))
+    finally:
+        dbscan_mod._compact_labels, dbscan_mod.fused_count_below = compact, count
+    f.update(rows=(lo, hi), labels=out["prediction"].to_numpy(),
+             rounds=dbscan_mod._propagate_labels.rounds - rounds, global_labels=seen,
+             counts=np.sum(hops, axis=0, dtype=np.int64))
+    return f
+
+
+def check_mp_dbscan(run, ranks, ref, launches, on_card, backend=None) -> None:
+    """Phase 3m's DBSCAN gates: both ranks compacted the same global label
+    vector, and each returned its slice of it; the rounds of phase 3 on both
+    ranks; the count kernel launched once a hop on each rank (each holds
+    rows); the ring's collectives. Against phase 3's single-process transform
+    (ref), under the borderline rule (DB_BAND_ULPS; ref["near"] counts each
+    row's borderline pairs): the eps-counts summed over the ring's hops equal
+    phase 3's one-launch counts at every row, but by at most a row's
+    borderline pairs at their ends; a core flag flips only at such an end;
+    the labels are equal as numbers at every row but the ends and the rows of
+    a cluster, in either labeling, holding a flipped row; and at most
+    DB_MOVED_SHARE of the rows take another label. `backend`, where given,
+    is the one every rank must have run on."""
+    for res in ranks:
+        f = res["dbscan"]
+        log_rank_call(res["rank"], f"DBSCAN transform ({f['rows'][1] - f['rows'][0]} rows, "
+                      f"{f['rounds']} rounds; {res['backend']}, {res['device']}, {res['card']})", f)
+        require(backend is None or res["backend"] == backend,
+                f"{run}: DBSCAN rank {res['rank']} backend {res['backend']}, not {backend}")
+        if launches is not None:
+            for name, c in f["launches"].items():
+                launches[name] += c
+    glob = [r["dbscan"]["global_labels"] for r in ranks]
+    require(all(len(g) == 1 for g in glob), f"{run}: DBSCAN compacted {[len(g) for g in glob]} times")
+    require(all(bits_equal(g[0], glob[0][0]) for g in glob),
+            f"{run}: DBSCAN: the ranks compacted different global label vectors")
+    for r in ranks:
+        f = r["dbscan"]
+        lo, hi = f["rows"]
+        require(bits_equal(f["labels"], glob[0][0][lo:hi]),
+                f"{run}: DBSCAN rank {r['rank']} returned other labels than its rows' global ones")
+        require(f["rounds"] == ref["rounds"],
+                f"{run}: DBSCAN rank {r['rank']} ran {f['rounds']} rounds, phase 3 {ref['rounds']}")
+        want_ops = dbscan_ring_ops(len(ranks), f["rounds"])
+        require(f["comm"]["comm.collective_ops"] == want_ops
+                and f["comm"] == ranks[0]["dbscan"]["comm"],
+                f"{run}: DBSCAN rank {r['rank']} collectives {f['comm']} (want {want_ops} ops)")
+        if on_card:
+            require(f["launches"]["count"] == len(ranks),
+                    f"{run}: DBSCAN rank {r['rank']} launched count {f['launches']['count']} "
+                    f"times, not once a hop ({len(ranks)})")
+    near = ref["near"]
+    ends = near > 0
+    counts = np.concatenate([r["dbscan"]["counts"] for r in ranks])
+    off = np.abs(counts - ref["counts"])
+    flips = (counts >= DB_MIN_SAMPLES) != (ref["counts"] >= DB_MIN_SAMPLES)
+    log(f"  {run}: DBSCAN eps-counts summed over the ring's hops against phase 3's one-launch "
+        f"counts: {int((off > 0).sum())} rows differ ({int((off > near).sum())} by more than "
+        f"their borderline pairs), {int(flips.sum())} core flips ({int((flips & ~ends).sum())} "
+        f"at rows with no borderline pair)")
+    require(not (off > near).any(),
+            f"{run}: DBSCAN ring counts differ from one launch's beyond the borderline pairs")
+    require(not (flips & ~ends).any(), f"{run}: DBSCAN core flips at rows with no borderline pair")
+    got = np.concatenate([r["dbscan"]["labels"] for r in ranks])
+    allowed = ends | flips
+    for labels in (got, ref["labels"]):
+        keys = cluster_keys(labels)
+        allowed |= np.isin(keys, keys[flips])
+    moved = got != ref["labels"]
+    log(f"  {run}: DBSCAN across {len(ranks)} ranks: labels of {len(got)} rows against phase "
+        f"3's single-process transform: {int(moved.sum())} rows take another label (at most "
+        f"{DB_MOVED_SHARE * len(got):g}), {int((moved & ~allowed).sum())} of them out of the "
+        f"rule's reach; rows the rule reaches {int(allowed.sum())} ({allowed.mean():.4%}; "
+        f"borderline pair ends {int(ends.sum())}); rows in another cluster "
+        f"{int(disagreeing_rows(got, ref['labels']).sum())}; "
+        f"{ranks[0]['dbscan']['rounds']} rounds on every rank (phase 3: {ref['rounds']}); "
+        f"{ranks[0]['dbscan']['comm']['comm.collective_ops']} collectives, "
+        f"{ranks[0]['dbscan']['comm']['comm.collective_bytes']} bytes a rank")
+    require(not (moved & ~allowed).any(),
+            f"{run}: DBSCAN labels differ from the single process out of the rule's reach")
+    require(moved.sum() <= DB_MOVED_SHARE * len(got),
+            f"{run}: DBSCAN labels differ from the single process at {int(moved.sum())} rows")
+
+
 def check_ring_ref(torch, X, n_ring: int, ring_ref) -> None:
     """Hold the ring's single-process search (X's MP_RING_QUERIES rows after
     the first n_ring against those rows, k = K_KNN10: the top-k kernel at that
@@ -3189,7 +3603,8 @@ def phase_multiprocess(torch, Xh, yh, w_h, X, refs, launches=None, device="cuda"
         f"{1 - MP_SHARE:.0%}, in-core and streamed ({STREAM_BATCH_MAIN} rows a global batch)")
     workdir = mp_workdir("phase3m")
     t0 = time.perf_counter()
-    for name, a in (("X", Xh), ("y", yh), ("w", w_h), ("q10", refs["q10"])):
+    for name, a in (("X", Xh), ("y", yh), ("w", w_h), ("q10", refs["q10"]),
+                    ("db_X", refs["db"]["X"])):
         np.save(workdir / f"{name}.npy", a)
     log(f"  wrote X, y and w ({(Xh.nbytes + yh.nbytes + w_h.nbytes) / 1e9:.3f} GB) for the "
         f"ranks to memory-map in {time.perf_counter() - t0:.1f} s")
@@ -3258,6 +3673,11 @@ def phase_multiprocess(torch, Xh, yh, w_h, X, refs, launches=None, device="cuda"
                         for name, c in f["launches"].items():
                             launches[name] += c
             check_mp_knn(torch, run, ranks, X, refs, ring_ref, n_ring, launches, on_card)
+            t0 = time.perf_counter()
+            db_ranks = run_ranks(workdir, MP_WORLD, device, visible, job="dbscan")
+            log(f"  run {run}, DBSCAN: {time.perf_counter() - t0:.1f} s with the ranks' start")
+            check_mp_dbscan(run, db_ranks, refs["db"], launches, on_card,
+                            ("gloo" if visible is not None else "nccl") if on_card else None)
             r0, r1 = ranks[0]["fits"], ranks[1]["fits"]
             for key in r0:
                 require(bits_equal(r0[key]["attrs"], r1[key]["attrs"]),
@@ -3510,13 +3930,14 @@ def main() -> int:
                 k=K_MAIN, seed=1, weightCol="weight").fit(df_w))), kmw, n_split)
     del df_w
     df_lr = pd.DataFrame({"features": rows_h, "label": yh})
+    # evaluate transforms the frame through the entry point (its predictions
+    # frame is the transform's output), so no transform of its own runs here:
+    # the one inside evaluate is timed as "<name> transform"
     ols = run_path("LinReg OLS fit", lambda: LinearRegression(standardization=True).fit(df_lr))
-    ols_pred = run_path("LinReg OLS transform", lambda: ols.transform(df_lr))
-    ols_ev = run_path("LinReg OLS evaluate", lambda: ols.evaluate(df_lr))
+    ols_ev = evaluate_timed(torch, run_path, stages, path_counts, "LinReg OLS", ols, df_lr)
     en = run_path("LinReg elastic net fit",
                   lambda: LinearRegression(regParam=EN_REG, elasticNetParam=EN_L1).fit(df_lr))
-    en_pred = run_path("LinReg elastic net transform", lambda: en.transform(df_lr))
-    en_ev = run_path("LinReg elastic net evaluate", lambda: en.evaluate(df_lr))
+    en_ev = evaluate_timed(torch, run_path, stages, path_counts, "LinReg elastic net", en, df_lr)
     del df_lr
     df_lr1 = pd.DataFrame({"features": rows_h[:N_LR_HIGH], "label": yh[:N_LR_HIGH]})
     ols1 = run_path("LinReg OLS fit, 1M rows",
@@ -3659,8 +4080,8 @@ def main() -> int:
         f"{t_solve:.4f} s, {1e3 * t_solve / max(en_iter, 1):.4f} ms per FISTA iteration incl. "
         f"its host read")
     require(en_rel <= 1e-3, f"LinReg elastic net coefficients rel err {en_rel}")
-    for label, out, ev in (("OLS", ols_pred, ols_ev), ("elastic net", en_pred, en_ev)):
-        p = out["prediction"].to_numpy()
+    for label, ev in (("OLS", ols_ev), ("elastic net", en_ev)):
+        p = ev.predictions["prediction"].to_numpy()
         log(f"  LinReg {label}: r2 {ev.r2:.8f}, rmse {ev.rootMeanSquaredError:.6f} "
             f"(label noise std {LR_NOISE}), mae {ev.meanAbsoluteError:.6f}")
         require(p.shape == (N_MAIN,) and np.isfinite(p).all(), f"LinReg {label} predictions")
@@ -3675,7 +4096,6 @@ def main() -> int:
     ols_rmse, en_rmse = ols_ev.rootMeanSquaredError, en_ev.rootMeanSquaredError
     require(abs(ols_rmse - LR_NOISE) <= 0.05 * LR_NOISE, f"LinReg OLS rmse {ols_rmse}")
     require(en_rmse >= ols_rmse, f"LinReg elastic net rmse {en_rmse} < OLS {ols_rmse}")
-    del ols_pred, en_pred
 
     # DBSCAN: labels against a run of the same propagation from the plain count's
     # core mask; clusters pure in the blobs that made them
@@ -3697,6 +4117,7 @@ def main() -> int:
     require(bool((counts_k != counts_p).logical_or(core_k == core_p).all()),
             "DBSCAN core flips where the counts agree")
     require(not (differ & ~allowed).any(), "DBSCAN labels differ from the plain-count run")
+    db_band = dbscan_band(torch, Xdb, counts_k, mp_rows(N_DB, 0)[1])
     n_clusters = int(got.max()) + 1
     noise = float((got == -1).mean())
     impure = sum(len(np.unique(truth_db[got == c])) != 1 for c in range(n_clusters))
@@ -3708,6 +4129,18 @@ def main() -> int:
     require(n_clusters >= K_MAIN and impure == 0, "DBSCAN clusters do not follow the blobs")
     require(DB_NOISE <= noise <= 0.25, f"DBSCAN noise share {noise}")
     require(bool(np.all(got[truth_db == -1] == -1)), "DBSCAN labels a uniform noise row")
+
+    log("phase 3p: save and load of phase 3's models and their estimators, the loaded models "
+        f"transforming a prefix of the rows ({PERSIST_ROWS}; DBSCAN {PERSIST_DB_ROWS})")
+    phase_persist(torch, run_path, path_counts, {
+        "PCA": (pca, PCA(k=K_PCA, inputCol="features"), Xh[:PERSIST_ROWS], None, None),
+        "KMeans": (km, KMeans(k=K_MAIN, seed=1), Xh[:PERSIST_ROWS], "assign", None),
+        "LinReg OLS": (ols, LinearRegression(standardization=True), Xh[:PERSIST_ROWS], None, None),
+        "LinReg elastic net": (en, LinearRegression(regParam=EN_REG, elasticNetParam=EN_L1),
+                               Xh[:PERSIST_ROWS], None, None),
+        "DBSCAN": (db, DBSCAN(eps=DB_EPS, min_samples=DB_MIN_SAMPLES), Xdb_h[:PERSIST_DB_ROWS],
+                   "count", None),
+    })
 
     # NearestNeighbors: each answer is phase 2b's kernel answer on the same
     # data; user ids carried; each row of X queried finds itself first
@@ -3806,7 +4239,10 @@ def main() -> int:
         "beta64": beta64.cpu().numpy(), "en64": en64["coefficients"],
         "ols": ols.coefficients, "en": en.coefficients,
         "ols_streamed": streamed["LinReg OLS fit, streamed, cache off"].coefficients,
-        "q10": Qh_knn10, "knn": knn_refs}, launches)
+        "q10": Qh_knn10, "knn": knn_refs,
+        "db": {"X": Xdb_h, "labels": db_out["prediction"].to_numpy(), "rounds": rounds,
+               "counts": counts_k.long().cpu().numpy(), **db_band}},
+        launches)
     del streamed
 
     log("phase 4: times at the main paths' shapes (CUDA events, median of 10; 3 for topk "

@@ -114,6 +114,12 @@ class _TorchClass:
         """Default values of the backend kernel params for this algorithm."""
         return {}
 
+    @classmethod
+    def _format_params_default(cls) -> Dict[str, Any]:
+        """Backend params the saved-model format carries that the port has no
+        op for, each at the one value the port computes (core/persistence.py)."""
+        return {}
+
 
 # Spark ParamValidators equivalents: (lo, hi) inclusive bounds, None = unbounded
 _PARAM_BOUNDS: Dict[str, Any] = {

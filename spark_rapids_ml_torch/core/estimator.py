@@ -30,7 +30,14 @@
 # collective. The streamed-or-in-core choice is collective: all ranks stream
 # when any rank's X exceeds its threshold (one all-reduce MAX), so that no two
 # ranks run different collectives. No process gathers the global X, and a
-# group never falls back to a single-process fit.
+# group never falls back to a single-process fit. A model's transform is each
+# rank's own, with no collective, but for DBSCAN's (`_collective_transform`),
+# which clusters every rank's rows: an empty frame is then a rank's empty
+# partition, which joins the collectives.
+#
+# Persistence: `write`/`save`/`read`/`load` on estimators and models (the
+# mixin core/persistence.py::Persistable), in the JAX package's directory
+# format; `_TorchModel._from_row` rebuilds a model from its saved attributes.
 #
 # Not ported: the Spark barrier/collect planes, fitMultiple, the observability
 # run scopes and the reliability ladder. The ladder's device-to-CPU rung in
@@ -63,6 +70,7 @@ from .dataset import (
     extract_feature_data,
 )
 from .params import ParamMap
+from .persistence import Persistable
 
 
 @dataclass
@@ -99,12 +107,8 @@ def stage(X: np.ndarray, device: torch.device, ring: Optional[ingest.PinnedRing]
     return ingest.upload(X, device, dtype, ring or ingest.PinnedRing(device))
 
 
-class _TorchEstimator(_TorchClass, _TorchParams):
+class _TorchEstimator(_TorchClass, _TorchParams, Persistable):
     """Abstract estimator (reference _CumlCaller/_CumlEstimator, core.py:435-1354)."""
-
-    # whether the fit reduces its statistics across the ranks of a process
-    # group; an estimator without it refuses to fit under one
-    _multiprocess = False
 
     def __init__(self) -> None:
         super().__init__()
@@ -169,16 +173,6 @@ class _TorchEstimator(_TorchClass, _TorchParams):
     def _create_pyspark_model(self, attrs: Dict[str, Any]) -> "_TorchModel":
         """Build the model object from fit attributes (reference core.py:1084)."""
 
-    def _check_group(self, part: Partitioner) -> None:
-        """Raise, before any collective, when a multi-process group would
-        make this estimator fit each rank's rows alone."""
-        if part.is_multiprocess and not self._multiprocess:
-            raise NotImplementedError(
-                f"{type(self).__name__} has no multi-process fit: under a process "
-                f"group of {part.process_count} ranks it would fit each rank's rows "
-                "alone. Fit it in one process."
-            )
-
     def _streams(self, fd: FeatureData, device: torch.device) -> bool:
         """Whether this fit takes the streamed out-of-core path: the estimator
         has one and its design matrix exceeds the stream threshold."""
@@ -197,7 +191,6 @@ class _TorchEstimator(_TorchClass, _TorchParams):
         self._check_supported()
         device = self.device
         part = active_partitioner()
-        self._check_group(part)
         with span("extract"):
             fd = self._pre_process_data(dataset, part)
         desc = part.descriptor(fd.n_rows, fd.n_cols)
@@ -228,12 +221,17 @@ class _TorchEstimatorSupervised(_TorchEstimator):
         return True
 
 
-class _TorchModel(_TorchClass, _TorchParams):
+class _TorchModel(_TorchClass, _TorchParams, Persistable):
     """Abstract fitted model (reference _CumlModel, core.py:1356-1754).
 
     Holds the fit-produced attribute dict; transform() extracts features, runs the
     predict kernel on the model's device, and appends output columns preserving
     the input dataset flavor."""
+
+    # whether transform() is a collective under a process group (DBSCAN's,
+    # which clusters every rank's rows): an empty frame is then this rank's
+    # empty partition, which still joins the collectives
+    _collective_transform = False
 
     def __init__(self, **model_attributes: Any) -> None:
         super().__init__()
@@ -243,6 +241,12 @@ class _TorchModel(_TorchClass, _TorchParams):
 
     def get_model_attributes(self) -> Dict[str, Any]:
         return self._model_attributes
+
+    @classmethod
+    def _from_row(cls, attrs: Dict[str, Any]) -> "_TorchModel":
+        """Rebuild from an attribute dict of numpy arrays and scalars
+        (reference core.py:1389-1396)."""
+        return cls(**attrs)
 
     @abstractmethod
     def _transform_arrays(self, X: torch.Tensor) -> Dict[str, np.ndarray]:
@@ -256,11 +260,15 @@ class _TorchModel(_TorchClass, _TorchParams):
         self._check_supported()
         device = self.device
         input_col, input_cols = self._get_input_columns()
+        collective = self._collective_transform and active_partitioner().is_multiprocess
         with span("extract"):
-            fd = extract_feature_data(
-                dataset, input_col=input_col, input_cols=input_cols,
-                float32=self._float32_inputs,
-            )
+            fd = empty_partition(dataset, collective,
+                                 np.float32 if self._float32_inputs else np.float64)
+            if fd is None:
+                fd = extract_feature_data(
+                    dataset, input_col=input_col, input_cols=input_cols,
+                    float32=self._float32_inputs,
+                )
             X = ensure_dtype(fd.features, float32=self._float32_inputs)
         with span("stage"):
             X = stage(X, device)

@@ -74,6 +74,10 @@ class _KMeansClass(_TorchClass):
             "metric": "euclidean",
         }
 
+    @classmethod
+    def _format_params_default(cls) -> Dict[str, Any]:
+        return {"n_init": 1}  # the JAX package's key; one init, Spark's
+
     def _check_supported(self) -> None:
         super()._check_supported()  # type: ignore[misc]
         if not self._float32_inputs:  # type: ignore[attr-defined]
@@ -140,8 +144,6 @@ class KMeans(_KMeansClass, _TorchEstimator, _KMeansParams):
     >>> model = KMeans(k=4, device="cpu").fit(X)
     >>> model.transform(X)   # a 'prediction' column
     """
-
-    _multiprocess = True  # its statistics are reduced across the ranks
 
     # Spark's KMeans validator requires k > 1 (pyspark ParamValidators.gt(1))
     _PARAM_BOUNDS_EXTRA = {"k": (2, None)}

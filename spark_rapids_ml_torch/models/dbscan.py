@@ -6,9 +6,17 @@
 #     clustering runs at transform() time on the rows it is given (reference
 #     clustering.py:904-918, "_fit returns empty model")
 #   * int64 labels, noise -1
+#   * under a process group (parallel/bootstrap.py) each rank passes its own
+#     rows to transform(), which clusters every rank's rows together through
+#     the ring of ops/dbscan.py (the rows' global offsets from
+#     Partitioner.descriptor) and returns each rank its own rows' labels, in
+#     the global first-appearance compaction; an empty rank passes an empty
+#     frame and takes part in every collective
+#   * save/load in the JAX package's directory format (core/persistence.py):
+#     the model has no fitted state and writes an empty attributes.json
 #
-# Not ported: f64 features (raise NotImplementedError), the streamed
-# (out-of-core) plane, the sklearn twin, persistence.
+# Not ported: f64 features (raise NotImplementedError on every rank, before
+# any collective), the streamed (out-of-core) plane, the sklearn twin.
 #
 
 from __future__ import annotations
@@ -117,7 +125,7 @@ class _DBSCANParams(HasFeaturesCol, HasFeaturesCols, HasPredictionCol, HasIDCol)
 class DBSCAN(_DBSCANClass, _TorchEstimator, _DBSCANParams):
     """Density-based clustering on one device (the card by default;
     `device="cpu"` asks for the CPU). fit() only checks the params; transform()
-    clusters the rows it is given.
+    clusters the rows it is given, under a process group every rank's rows.
 
     Example
     -------
@@ -147,24 +155,33 @@ class DBSCAN(_DBSCANClass, _TorchEstimator, _DBSCANParams):
             return self.copy(params).fit(dataset)
         self._validate_param_bounds()
         self._check_supported()
-        self._check_group(active_partitioner())
         model = DBSCANModel()
         self._copyValues(model)
         return model
 
 
 class DBSCANModel(_DBSCANClass, _TorchModel, _DBSCANParams):
+    # transform() is collective under a process group
+    _collective_transform = True
+
     def __init__(self) -> None:
         super().__init__()
         self._set_defaults()
         self.initialize_torch_params()
 
     def _transform_arrays(self, X: torch.Tensor) -> Dict[str, np.ndarray]:
+        part = active_partitioner()
+        layout = None
+        if part.is_multiprocess:
+            layout = part.descriptor(X.shape[0], X.shape[1])
+            if X.shape[0] == 0:  # this rank's empty partition, at the group's width
+                X = X.reshape(0, layout.n)
         valid = torch.ones((X.shape[0],), dtype=torch.bool, device=X.device)
         labels = dbscan_fit_predict(
             X, valid,
             eps=self.getOrDefault("eps"),
             min_samples=self.getOrDefault("min_samples"),
             metric=self.getOrDefault("metric"),
+            part=part, layout=layout,
         )
         return {self.getOrDefault("predictionCol"): labels}

@@ -33,6 +33,10 @@ class _PCAClass(_TorchClass):
     def _get_torch_params_default(cls) -> Dict[str, Any]:
         return {"n_components": None}
 
+    @classmethod
+    def _format_params_default(cls) -> Dict[str, Any]:
+        return {"whiten": False}  # the JAX package's key; the port never whitens
+
 
 class _PCAParams(HasInputCol, HasInputCols, HasOutputCol):
     k: Param[int] = Param(
@@ -67,8 +71,6 @@ class PCA(_PCAClass, _TorchEstimator, _PCAParams):
     >>> model = PCA(k=2, inputCol="features", device="cpu").fit(X)
     >>> out = model.transform(X)   # a 'pca_features' column
     """
-
-    _multiprocess = True  # its statistics are reduced across the ranks
 
     def __init__(self, **kwargs: Any) -> None:
         super().__init__()

@@ -46,8 +46,11 @@
 # Not ported: ApproximateNearestNeighbors (IVF-Flat, IVF-PQ, CAGRA), the
 # streamed scan, the incremental tier (add_items / delete_items /
 # compact_items; a carried `item_valid` mask is honored), serving,
-# persistence; k above the kernel's K_MAX raises (above 205 in a narrow form,
-# whose pool of k + max(8, k // 4) must fit K_MAX).
+# persistence (the estimator is not persistable, as in the reference; the
+# JAX package saves its model through the ANN index store, not ported, so
+# the port's model refuses to write or read); k above the kernel's K_MAX
+# raises (above 205 in a narrow form, whose pool of k + max(8, k // 4) must
+# fit K_MAX).
 #
 
 from __future__ import annotations
@@ -161,8 +164,6 @@ class NearestNeighbors(_NearestNeighborsClass, _TorchEstimator, _NNParams):
     >>> _, _, knn_df = model.kneighbors(X[:4])   # query ids, indices, distances
     """
 
-    _multiprocess = True
-
     def __init__(self, **kwargs: Any) -> None:
         super().__init__()
         self._setDefault(k=5)
@@ -210,6 +211,11 @@ class NearestNeighbors(_NearestNeighborsClass, _TorchEstimator, _NNParams):
         raise NotImplementedError("NearestNeighbors is not persistable (reference knn.py:384-408).")
 
 
+_MODEL_NOT_PERSISTABLE = (
+    "NearestNeighborsModel is not persistable in the port: the JAX package saves it through "
+    "its ANN index store, which is not ported")
+
+
 class NearestNeighborsModel(_NearestNeighborsClass, _TorchModel, _NNParams):
     def __init__(
         self,
@@ -239,6 +245,13 @@ class NearestNeighborsModel(_NearestNeighborsClass, _TorchModel, _NNParams):
 
     def _transform_arrays(self, X: torch.Tensor) -> Dict[str, np.ndarray]:
         raise NotImplementedError("Use kneighbors() / exactNearestNeighborsJoin().")
+
+    def write(self):
+        raise NotImplementedError(_MODEL_NOT_PERSISTABLE)
+
+    @classmethod
+    def read(cls):
+        raise NotImplementedError(_MODEL_NOT_PERSISTABLE)
 
     def _items_on(self, device: torch.device):
         """The items, their norms and their valid mask on `device`, staged once."""

@@ -8,9 +8,11 @@
 #     (ops/linear.py), from one normal-equation pass over X
 #   * 1-feature inputs are supported (no cuML dim == 1 limit here)
 #
+# Saved and loaded in the JAX package's directory format (core/persistence.py).
+#
 # Not ported: loss="huber" (raises NotImplementedError at fit), fitMultiple at
 # the estimator level (ops/linear.py::solve_from_stats takes extra param sets),
-# sparse input, persistence and the sklearn twin. The streamed fit
+# sparse input and the sklearn twin. The streamed fit
 # (ops/streaming.py::streaming_linreg_stats) takes over when the design matrix
 # exceeds the stream threshold (core/estimator.py).
 #
@@ -182,8 +184,6 @@ class LinearRegression(_LinearRegressionClass, _TorchEstimatorSupervised, _Linea
     >>> model = LinearRegression(device="cpu").fit(df)
     >>> model.transform(df)   # a 'prediction' column
     """
-
-    _multiprocess = True  # its statistics are reduced across the ranks
 
     def __init__(self, **kwargs: Any) -> None:
         super().__init__()

@@ -16,15 +16,20 @@
 #     classification.py:502-515); featureImportances, totalNumNodes,
 #     toDebugString and per-tree views from the heap arrays.
 #
-# Not ported: the streamed (uint8) fit, fitMultiple, persistence, the forest
-# JSON and treelite import/export, the classifier's evaluate and serving. A
-# param value the JAX package would hand to its sklearn fallback raises here.
+#   * save/load in the JAX package's directory format (core/persistence.py),
+#     and the forest JSON dump and import and the treelite import (toJSON,
+#     fromJSON, fromTreeliteJSON; ops/trees.py), which agree with the JAX
+#     package's on the same attributes and dumps.
+#
+# Not ported: the streamed (uint8) fit, fitMultiple, the classifier's evaluate
+# and serving. A param value the JAX package would hand to its sklearn
+# fallback raises here.
 #
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,7 +47,14 @@ from ..core.params import (
     Param,
     TypeConverters,
 )
-from ..ops.trees import forest_fit, predict_forest, resolve_feature_subset
+from ..ops.trees import (
+    forest_fit,
+    forest_from_json,
+    forest_from_treelite_json,
+    forest_to_json,
+    predict_forest,
+    resolve_feature_subset,
+)
 from ..utils import span
 
 
@@ -186,7 +198,6 @@ class _RandomForestParams(
 
 class _RandomForestEstimator(_RandomForestClass, _TorchEstimatorSupervised, _RandomForestParams):
     _is_classification = False
-    _multiprocess = True
     # Spark caps tree depth at 30; the heap-layout forest (2^(depth+1) slots)
     # makes an early clear error better than a depth-exponential OOM
     _PARAM_BOUNDS_EXTRA = {"numTrees": (1, None), "maxDepth": (0, 30), "maxBins": (2, None)}
@@ -523,6 +534,35 @@ class _RandomForestModel(_RandomForestClass, _TorchModel, _RandomForestParams):
         return torch.from_numpy(np.asarray(value, dtype=np.float32).reshape(1, -1)).to(
             self.device
         )
+
+    def toJSON(self) -> List[Dict]:
+        """Forest dump (the reference's treelite-JSON role, tree.py:534-559)."""
+        return forest_to_json(self._model_attributes, self._is_classification)
+
+    @classmethod
+    def fromJSON(
+        cls, trees_json: List[Dict], n_features: int, num_classes: int = 0
+    ) -> "_RandomForestModel":
+        """Rebuild a model from a forest JSON dump (the import half of the
+        reference's treelite interop, tree.py:439-449): a round trip through
+        toJSON()/fromJSON() predicts the same bits, and dumps in the same
+        shape from elsewhere import the same way."""
+        attrs = forest_from_json(trees_json, n_features, cls._is_classification)
+        attrs["num_classes"] = int(num_classes)
+        return cls(**attrs)
+
+    @classmethod
+    def fromTreeliteJSON(
+        cls, model_json: Any, n_features: Optional[int] = None, num_classes: int = 0,
+    ) -> "_RandomForestModel":
+        """Import a treelite JSON dump, the format cuML forests serialize to
+        (reference tree.py:534-559 `dump_as_json`, utils.py:700-809 node
+        schema): the full model dict (with `trees` and `num_feature`) or a bare
+        list of tree dicts and n_features. Classification leaves are
+        `leaf_vector` class probabilities."""
+        attrs = forest_from_treelite_json(model_json, cls._is_classification, n_features)
+        attrs["num_classes"] = int(num_classes)
+        return cls(**attrs)
 
 
 class _DecisionTreeView:

@@ -33,8 +33,8 @@
 #     rank keeps the rows of its own queries;
 #   * `exact_knn_ring`, the ring (the JAX package's `exact_knn_ring`): the
 #     queries stay on their rank and the item shard, padded to the largest
-#     shard, rotates rank to rank by `Partitioner.ring_shift` with its valid
-#     mask, its cached norms and its ids; each of the P hops runs the top-k
+#     shard (`Ring`), rotates rank to rank by `Partitioner.ring_shift` with its
+#     valid mask, its cached norms and its ids; each of the P hops runs the top-k
 #     kernel of the local queries against the shard held, at k_hop = min(k,
 #     padded shard rows), and merges the hop into a running top-k. Peak memory
 #     a rank: two padded shards (the one held and the one arriving) beside the
@@ -60,6 +60,7 @@ from typing import TYPE_CHECKING, Iterator, List, Optional, Tuple
 
 import torch
 
+from ..parallel.partitioner import Ring
 from ..utils import span
 from ._precision import pdot
 from .selection import mask_invalid, merge_topk, select_topk_by_id
@@ -233,11 +234,9 @@ def exact_knn_ring(
     the ring (module header): (squared distances ascending (nq, min(k,
     layout.m)) f32, int64 item ids), in exact f32. X, valid, x2 and `ids` as
     in exact_knn_distributed. Collective: every rank calls it."""
-    count, rank = part.process_count, part.process_index
     rows = [sz for _, sz in layout.parts_rank_size]
-    starts = [sum(rows[:r]) for r in range(count)]
     shard = max(rows)
-    n, d = X.shape
+    n = X.shape[0]
     nq = Q.shape[0]
     dev = X.device
     k_eff = min(int(k), layout.m)
@@ -245,31 +244,25 @@ def exact_knn_ring(
     if x2 is None:
         x2 = center_norms_sq(X)
     # the held shard, padded to the largest: invalid rows with id -1
-    Xc = torch.zeros((shard, d), dtype=X.dtype, device=dev)
-    vc = torch.zeros((shard,), dtype=torch.bool, device=dev)
-    x2c = torch.zeros((shard,), dtype=torch.float32, device=dev)
-    uc = torch.full((shard,), -1, dtype=torch.int64, device=dev)
-    Xc[:n], vc[:n], x2c[:n], uc[:n] = X, valid, x2, _item_ids(ids, layout, n, dev)
+    ring = Ring(part, rows, (X, 0.0), (valid, False), (x2, 0.0),
+                (_item_ids(ids, layout, n, dev), -1))
     best_d2 = torch.full((nq, k_eff), math.inf, dtype=torch.float32, device=dev)
     best_pos = torch.full((nq, k_eff), -1, dtype=torch.int64, device=dev)
     best_ids = torch.full((nq, k_eff), -1, dtype=torch.int64, device=dev)
-    for h in range(count):
-        owner = (rank - h) % count
+    for owner in ring.hops():
         if nq and shard:
             from .topk import fused_topk
 
+            Xc, vc, x2c, uc = ring.tensors
             with span("select", precision="float32", k=k_hop):
                 hop_d2, idx = fused_topk(Q, Xc, vc, k_hop, x2=x2c)
             with span("merge"):
                 idx = idx.long()
-                pos = torch.where(idx < rows[owner], starts[owner] + idx, -1)
+                pos = torch.where(idx < rows[owner], ring.starts[owner] + idx, -1)
                 pool_pos = torch.cat([best_pos, pos], dim=1)
                 pool_ids = torch.cat([best_ids, uc[idx]], dim=1)
                 best_d2, sel = select_topk_by_id(torch.cat([best_d2, hop_d2], dim=1),
                                                  pool_pos, k_eff)
                 best_pos = torch.gather(pool_pos, 1, sel)
                 best_ids = torch.gather(pool_ids, 1, sel)
-        if h < count - 1:  # the last hop's shard goes nowhere
-            with span("exchange", route="ring"):
-                Xc, vc, x2c, uc = part.ring_shift(Xc, vc, x2c, uc)
     return best_d2, best_ids

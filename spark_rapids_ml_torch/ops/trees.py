@@ -57,14 +57,17 @@
 # order (at 50M rows and 32 quantile bins a root bin holds about 1.6M). On
 # real-valued stats the sums are added in another order.
 #
-# Not ported: the streamed (uint8) fit, the forest JSON and treelite
-# import/export.
+# The forest JSON (forest_to_json / forest_from_json) and the treelite import
+# (forest_from_treelite_json) are the JAX package's, in numpy, copied here: the
+# same attributes give the same dump, and the same dump the same arrays.
+#
+# Not ported: the streamed (uint8) fit.
 #
 
 from __future__ import annotations
 
 import math
-from typing import TYPE_CHECKING, Dict, List, Optional
+from typing import TYPE_CHECKING, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -451,3 +454,214 @@ def forest_fit(
     out = {k: np.stack([t[k] for t in trees]) for k in trees[0]}
     out["bin_edges"] = edges
     return out
+
+
+# ---------------------------------------------------------------------------
+# Forest JSON and treelite import (numpy; the JAX package's ops/trees.py)
+# ---------------------------------------------------------------------------
+
+
+def forest_to_json(model_attrs: Dict[str, np.ndarray], is_classification: bool) -> List[Dict]:
+    """Portable nested-dict dump of the forest — the role of the reference's
+    treelite JSON dump for Spark-tree interop (reference tree.py:534-559,
+    utils.py:585-809)."""
+    feature = model_attrs["feature"]
+    threshold = model_attrs["threshold"]
+    is_leaf = model_attrs["is_leaf"]
+    value = model_attrs["value"]
+
+    def node(tree_idx: int, p: int) -> Dict:
+        if is_leaf[tree_idx, p] or feature[tree_idx, p] < 0 or 2 * p >= feature.shape[1]:
+            payload = value[tree_idx, p].tolist()
+            return (
+                {"leaf_value": payload}
+                if not is_classification
+                else {"leaf_class_probs": payload}
+            )
+        return {
+            "split_feature": int(feature[tree_idx, p]),
+            "threshold": float(threshold[tree_idx, p]),
+            "default_left": True,
+            "left_child": node(tree_idx, 2 * p),
+            "right_child": node(tree_idx, 2 * p + 1),
+        }
+
+    return [
+        {"tree_id": i, "root": node(i, 1)} for i in range(feature.shape[0])
+    ]
+
+
+def forest_from_json(
+    trees_json: List[Dict], n_features: int, is_classification: bool
+) -> Dict[str, np.ndarray]:
+    """Inverse of forest_to_json: rebuild the heap-layout forest arrays from the
+    portable nested-dict dump, so forests exported by this framework (or translated
+    from treelite/cuML dumps into the same shape) can be imported as models — the
+    import half of the reference's treelite interop (reference tree.py:439-449)."""
+    leaf_key = "leaf_class_probs" if is_classification else "leaf_value"
+
+    def depth_of(node: Dict) -> int:
+        if leaf_key in node or "left_child" not in node:
+            return 0
+        return 1 + max(depth_of(node["left_child"]), depth_of(node["right_child"]))
+
+    if not trees_json:
+        raise ValueError("empty forest JSON")
+    roots = [t["root"] for t in trees_json]
+    max_depth = max(depth_of(r) for r in roots)
+    if max_depth > 20:
+        # the heap layout allocates 2^(depth+1) slots per tree: one depth-25
+        # branch in an imported (e.g. cuML-trained) forest would inflate every
+        # array by 2^26 slots — fail with the number instead of a MemoryError
+        raise ValueError(
+            f"forest depth {max_depth} exceeds the dense-heap import limit (20); "
+            f"re-train/dump with a bounded max_depth to import"
+        )
+    v_dims = set()
+
+    def leaf_dim(node: Dict) -> None:
+        if leaf_key in node:
+            v_dims.add(len(node[leaf_key]))
+        else:
+            leaf_dim(node["left_child"])
+            leaf_dim(node["right_child"])
+
+    for r in roots:
+        leaf_dim(r)
+    if len(v_dims) != 1:
+        raise ValueError(f"inconsistent leaf payload dims: {sorted(v_dims)}")
+    v_dim = v_dims.pop()
+
+    n_trees = len(roots)
+    n_slots = 2 ** (max_depth + 1)
+    feature = np.full((n_trees, n_slots), -1, np.int32)
+    threshold = np.zeros((n_trees, n_slots), np.float32)
+    is_leaf = np.zeros((n_trees, n_slots), bool)
+    value = np.zeros((n_trees, n_slots, v_dim), np.float32)
+
+    def fill(tree_idx: int, node: Dict, p: int) -> None:
+        if leaf_key in node:
+            is_leaf[tree_idx, p] = True
+            value[tree_idx, p] = np.asarray(node[leaf_key], np.float32)
+            return
+        f = int(node["split_feature"])
+        if not 0 <= f < n_features:
+            raise ValueError(f"split_feature {f} out of range for d={n_features}")
+        feature[tree_idx, p] = f
+        threshold[tree_idx, p] = float(node["threshold"])
+        fill(tree_idx, node["left_child"], 2 * p)
+        fill(tree_idx, node["right_child"], 2 * p + 1)
+
+    for i, r in enumerate(roots):
+        fill(i, r, 1)
+    return {
+        "feature": feature,
+        "threshold": threshold,
+        "is_leaf": is_leaf,
+        "value": value,
+        "bin_edges": np.zeros((n_features, 1), np.float32),
+    }
+
+
+def _prev_f32_ftz(t: float) -> float:
+    """Largest float32 strictly below t under XLA's flush-to-zero semantics,
+    as the JAX package computes it, so that both packages import a dump to the
+    same thresholds.
+
+    nextafter(0.0, -inf) is a denormal, and XLA flushes denormals to +-0.0 — the
+    nudge silently vanishes and equality routes the wrong way (caught by driving
+    a '<' split at threshold 0.0). Denormal results are therefore snapped to the
+    nearest FTZ-representable neighbor: -tiny below zero, 0.0 for positive
+    denormals (consistent with denormal INPUTS also flushing to zero). The
+    port's predict does not flush denormal inputs: a denormal input in
+    (-tiny, 0) at a '<' split of threshold 0 goes right in the port."""
+    p = np.nextafter(np.float32(t), np.float32(-np.inf))
+    tiny = np.finfo(np.float32).tiny
+    if p != 0.0 and abs(p) < tiny:
+        p = np.float32(-tiny) if p < 0 else np.float32(0.0)
+    return float(p)
+
+
+def _treelite_tree_to_nested(tree: Dict, is_classification: bool) -> Dict:
+    """One treelite-JSON tree (flat `nodes` list keyed by node_id — the schema the
+    reference translates at utils.py:700-809) -> this module's nested dict.
+
+    Routing semantics: this framework's predict goes LEFT iff x[f] <= threshold.
+    Treelite records a comparison_op per split; for "<" the equality case must go
+    right, so the threshold is nudged to the previous float32 (x <= prev(t) iff
+    x < t for float32 inputs). "<=" imports unchanged.
+
+    Missing values: predict routes NaN LEFT (NaN > t is false), which matches
+    treelite's default_left=True. Nodes dumped with default_left=False would
+    misroute NaN features — flagged with a warning on import since this engine
+    has no per-node missing-direction bit.
+    """
+    nodes = {n["node_id"]: n for n in tree["nodes"]}
+    leaf_key = "leaf_class_probs" if is_classification else "leaf_value"
+    if any(
+        n.get("default_left") is False
+        for n in tree["nodes"]
+        if "left_child" in n
+    ):
+        import warnings
+
+        warnings.warn(
+            "treelite dump contains default_left=False splits; this engine "
+            "routes NaN/missing features LEFT, so predictions on rows with "
+            "missing values may differ from the source model",
+            stacklevel=3,
+        )
+
+    def conv(node_id: int) -> Dict:
+        n = nodes[node_id]
+        if "leaf_value" in n or "leaf_vector" in n:
+            v = n.get("leaf_vector", n.get("leaf_value"))
+            payload = list(v) if isinstance(v, (list, tuple)) else [float(v)]
+            if is_classification and len(payload) < 2:
+                raise ValueError(
+                    "classification import needs per-class leaf_vector "
+                    "probabilities (cuML RF dumps these); scalar leaves are "
+                    "margin/regression outputs"
+                )
+            return {leaf_key: payload}
+        op = n.get("comparison_op", "<=")
+        thr = float(n["threshold"])
+        if op == "<":
+            thr = _prev_f32_ftz(thr)
+        elif op != "<=":
+            raise ValueError(f"unsupported treelite comparison_op {op!r}")
+        return {
+            "split_feature": int(n["split_feature_id"]),
+            "threshold": thr,
+            "default_left": bool(n.get("default_left", True)),
+            "left_child": conv(n["left_child"]),
+            "right_child": conv(n["right_child"]),
+        }
+
+    return {"root": conv(int(tree.get("root_id", 0)))}
+
+
+def forest_from_treelite_json(
+    model_json: Union[Dict, List[Dict]],
+    is_classification: bool,
+    n_features: Optional[int] = None,
+) -> Dict[str, np.ndarray]:
+    """Import a treelite JSON dump (cuML `dump_as_json`, what the reference's
+    models carry as `treelite_model` JSON, reference tree.py:534-559) into the
+    heap-layout forest arrays. Accepts either the full model dict (with `trees`
+    and `num_feature`) or a bare list of tree dicts (then n_features is required)."""
+    if isinstance(model_json, dict):
+        trees = model_json["trees"]
+        if n_features is None:
+            n_features = int(model_json.get("num_feature", 0)) or None
+    else:
+        trees = model_json
+    if n_features is None:
+        raise ValueError(
+            "n_features is required when the dump carries no num_feature"
+        )
+    nested = [
+        {"tree_id": i, **_treelite_tree_to_nested(t, is_classification)}
+        for i, t in enumerate(trees)
+    ]
+    return forest_from_json(nested, int(n_features), is_classification)

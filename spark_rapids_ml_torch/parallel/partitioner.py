@@ -21,7 +21,12 @@
 # (ops/knn.py): `all_gather_rows` gathers every rank's candidate lists, and
 # `ring_shift` (jax.lax.ppermute with i -> i + 1 mod P) passes each
 # rank's item shard to the next rank, one point-to-point send and receive a
-# rank (dist.batch_isend_irecv, which gloo and NCCL both take).
+# rank (dist.batch_isend_irecv, which gloo and NCCL both take). DBSCAN's
+# transform, which clusters every rank's rows, passes each rank's row shard
+# round the same ring, for the core count and for each propagation round, and
+# all-gathers the labels (ops/dbscan.py). Both hold their shard in a `Ring`:
+# the rank's tensors padded to the largest rank's rows, and the rank that owns
+# the shard held.
 #
 # The JAX package's parallel/mesh.py has no counterpart: one process drives one
 # device (parallel/bootstrap.py), so there is no mesh inside a rank.
@@ -32,9 +37,10 @@
 # copied back (gloo's all_gather takes CPU tensors only). Every payload on
 # this path is a small statistic, a row count, a sample (the KMeans init's
 # strided one, the forest's edge sample) or kNN's queries and candidates, so
-# the copies cost little; the kNN ring's item shards are the exception (60%
-# of 1,048,576 x 256 f32 items is 0.64 GB a hop), which NCCL moves card to
-# card.
+# the copies cost little; the ring's shards are the exception (60% of
+# 1,048,576 x 256 f32 kNN items is 0.64 GB a hop; 60% of 262,144 x 32 DBSCAN
+# rows 20 MB a hop, P - 1 hops for the count and P - 1 a round), which NCCL
+# moves card to card.
 #
 # Counters (`counters`, zeroed by `reset_counters`), under the JAX package's
 # names: comm.collective_ops (one per collective) and comm.collective_bytes
@@ -49,6 +55,7 @@ import torch
 import torch.distributed as dist
 
 from .. import config as _config
+from ..utils import span
 from .partition import PartitionDescriptor
 
 counters: Dict[str, int] = {}
@@ -200,6 +207,36 @@ class Partitioner:
         width = widths.pop() if widths else int(n_cols)
         rows = [r for r, _ in shapes]
         return PartitionDescriptor.build(rows, width, rank=self.process_index, padded_m=sum(rows))
+
+
+class Ring:
+    """The shard a rank holds on the ring of `Partitioner.ring_shift`: its
+    tensors, given as (tensor, fill) pairs, padded with the fill to the
+    largest rank's rows (`rows`, every rank's row count in rank order), and
+    the rank that owns the shard held. `starts` are the ranks' first global
+    rows."""
+
+    def __init__(self, part: Partitioner, rows: List[int], *padded: Tuple[torch.Tensor, float]):
+        self.part, self.rows = part, list(rows)
+        self.starts = [sum(self.rows[:r]) for r in range(len(self.rows))]
+        shard = max(self.rows)
+        self.tensors: List[torch.Tensor] = []
+        for t, fill in padded:
+            full = torch.full((shard,) + tuple(t.shape[1:]), fill, dtype=t.dtype, device=t.device)
+            full[: t.shape[0]] = t
+            self.tensors.append(full)
+        self.owner = part.process_index
+
+    def hops(self):
+        """Yields once for every rank's shard, the one held first, passing the
+        shard on in between (P - 1 shifts, one collective each): the rank that
+        owns the shard held, whose tensors are then `self.tensors`."""
+        for h in range(len(self.rows)):
+            if h:
+                with span("exchange", route="ring"):
+                    self.tensors = list(self.part.ring_shift(*self.tensors))
+                self.owner = (self.owner - 1) % len(self.rows)
+            yield self.owner
 
 
 def active_partitioner() -> Partitioner:

@@ -1,8 +1,9 @@
 """One rank of a multi-process job of the PyTorch port on the CPU (gloo), run
 by tests/test_torch_multiprocess.py and
-tests/test_torch_multiprocess_knn_forest.py:
+tests/test_torch_multiprocess_knn_forest.py and
+tests/test_torch_multiprocess_dbscan.py:
 
-    python tests/_torch_mp_worker.py <rank> <world> <port> <workdir> [fits | knn_forest]
+    python tests/_torch_mp_worker.py <rank> <world> <port> <workdir> [fits | knn_forest | dbscan]
 
 It joins the group through the SRML_TPU_* environment and takes rows
 [cuts[rank], cuts[rank + 1]) of each data set in <workdir>/data.npz (its
@@ -10,12 +11,13 @@ It joins the group through the SRML_TPU_* environment and takes rows
 in-core and streamed at each batch size of STREAM_BATCH_ROWS, and writes
 <workdir>/rank<rank>.pkl: per (mode, case) the model attributes, the initial
 centers of a KMeans fit, and the collectives the fit made
-(comm.collective_ops and comm.collective_bytes); and per estimator of
-`unported()`, what its fit under the group raised and the collectives it
-made. The "knn_forest" job (`knn_forest_main`) fits NearestNeighbors and
+(comm.collective_ops and comm.collective_bytes). The "knn_forest" job (`knn_forest_main`) fits NearestNeighbors and
 searches it (`knn_searches()`, both routes, every form) and fits the forests
 (`forest_cases()`), and records the same way what each call returned or
-raised and the collectives it made."""
+raised and the collectives it made. The "dbscan" job (`dbscan_main`)
+transforms every case of `dbscan_cases()` and records the labels, the
+eps-counts summed over the ring's hops, the propagation rounds and the
+collectives, and what each case of `dbscan_errors()` raised."""
 
 import datetime
 import os
@@ -54,13 +56,6 @@ def cases():
     return out
 
 
-def unported():
-    """name -> estimator factory: the estimators with no multi-process fit."""
-    from spark_rapids_ml_torch.clustering import DBSCAN
-
-    return {"DBSCAN": lambda: DBSCAN(eps=1.0)}
-
-
 def modes():
     """mode -> stream_batch_rows, None for in-core."""
     return {"in-core": None, **{f"streamed {b}": b for b in STREAM_BATCH_ROWS}}
@@ -85,8 +80,9 @@ def main(rank: int, world: int, port: int, workdir: str, job: str = "fits") -> N
     if not bootstrap.init_from_env(timeout=datetime.timedelta(seconds=120)):
         raise RuntimeError("no multi-process group")
     part = partitioner.active_partitioner()
-    if job == "knn_forest":
-        results = knn_forest_main(rank, dict(np.load(os.path.join(workdir, "data.npz"))))
+    if job in ("knn_forest", "dbscan"):
+        run = knn_forest_main if job == "knn_forest" else dbscan_main
+        results = run(rank, dict(np.load(os.path.join(workdir, "data.npz"))))
         results.update(process_index=part.process_index, process_count=part.process_count)
         with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(results, f)
@@ -117,16 +113,6 @@ def main(rank: int, world: int, port: int, workdir: str, job: str = "fits") -> N
                 "init": inits[0] if inits else None,
                 "comm": dict(partitioner.counters),
             }
-    frame = _input(data["blobs"], "frame", rank)
-    results["unported"] = {}
-    for name, make in unported().items():
-        partitioner.reset_counters()
-        try:
-            make().fit(frame)
-            raised = None
-        except Exception as e:  # recorded, and asserted on by the test
-            raised = type(e).__name__
-        results["unported"][name] = {"raised": raised, "comm": dict(partitioner.counters)}
     with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(results, f)
     bootstrap.reset_process_group()
@@ -319,6 +305,71 @@ def knn_forest_main(rank, sets):
         _, raised, comm = _outcome(
             lambda: forest_estimator("classifier", dict(numTrees=1, maxDepth=2)).fit(frame),
             partitioner)
+        results["errors"][case] = {"raised": raised, "comm": comm}
+    return results
+
+
+# ------------------------------------------------------------------- DBSCAN
+
+
+def dbscan_cases():
+    """case -> (data set, eps, min_samples, metric): the transforms of the
+    DBSCAN job, each rank passing its rows of the set as a pandas frame."""
+    return {
+        "blobs": ("db_blobs", 1.0, 8, "euclidean"),
+        "cosine": ("db_cosine", 0.02, 6, "cosine"),
+        "chain": ("db_chain", 1.5, 2, "euclidean"),
+        "long_chain": ("db_long_chain", 1.5, 2, "euclidean"),
+    }
+
+
+def dbscan_errors():
+    """case -> (data set, float32_inputs, expected exception): transforms that
+    must raise on every rank. "zero_row": the last rank's last row is all
+    zeros under the cosine metric; "f64": f64 features asked for."""
+    return {"zero_row": ("db_cosine", True, "ValueError"),
+            "f64": ("db_blobs", False, "NotImplementedError")}
+
+
+def dbscan_main(rank, sets):
+    from spark_rapids_ml_torch.clustering import DBSCAN
+    from spark_rapids_ml_torch.ops import dbscan
+    from spark_rapids_ml_torch.parallel import partitioner
+
+    def frame(name, last_row_zero=False):
+        lo, hi = int(sets[f"{name}_cuts"][rank]), int(sets[f"{name}_cuts"][rank + 1])
+        X = sets[f"{name}_X"][lo:hi].copy()
+        if last_row_zero and rank == len(sets[f"{name}_cuts"]) - 2:
+            X[-1] = 0.0
+        return pd.DataFrame({"features": list(X)})
+
+    count, hops = dbscan.fused_count_below, []
+
+    def counted(*args):
+        c = count(*args)
+        hops.append(c.numpy().astype(np.int64))
+        return c
+
+    results = {"dbscan": {}, "errors": {}}
+    for case, (name, eps, min_samples, metric) in dbscan_cases().items():
+        model = DBSCAN(eps=eps, min_samples=min_samples, metric=metric).fit(frame(name))
+        rounds = dbscan._propagate_labels.rounds
+        hops.clear()
+        dbscan.fused_count_below = counted
+        try:
+            out, raised, comm = _outcome(lambda: model.transform(frame(name)), partitioner)
+        finally:
+            dbscan.fused_count_below = count
+        n = len(frame(name))
+        results["dbscan"][case] = {
+            "labels": None if out is None else out["prediction"].to_numpy(), "raised": raised,
+            "rounds": dbscan._propagate_labels.rounds - rounds, "comm": comm,
+            # the eps-counts summed over the ring's hops (none on an empty rank)
+            "counts": np.sum(hops, axis=0, dtype=np.int64) if hops else np.zeros(n, np.int64)}
+    for case, (name, f32, _) in dbscan_errors().items():
+        est = DBSCAN(eps=0.02, min_samples=6, metric="cosine", float32_inputs=f32)
+        _, raised, comm = _outcome(
+            lambda: est.fit(frame(name)).transform(frame(name, last_row_zero=True)), partitioner)
         results["errors"][case] = {"raised": raised, "comm": comm}
     return results
 

@@ -340,18 +340,6 @@ def test_the_collectives_are_the_paths(results, world, mode, case):
     assert comm[0]["comm.collective_bytes"] > 0
 
 
-@pytest.mark.parametrize("name", sorted(worker.unported()))
-@pytest.mark.parametrize("world", WORLDS)
-def test_an_estimator_without_a_multiprocess_fit_raises_on_every_rank(results, world, name):
-    """DBSCAN would fit each rank's rows alone: under the group its fit
-    raises on every rank, the empty one too, before any collective."""
-    for r in results["jobs"][world]:
-        assert r["unported"][name] == {
-            "raised": "NotImplementedError",
-            "comm": {"comm.collective_ops": 0, "comm.collective_bytes": 0},
-        }
-
-
 # ------------------------------------------------------------ rank-deficient OLS
 
 
