@@ -136,6 +136,31 @@ non-zero exit code; nothing is caught):
      Table with a FixedSizeList<float32>[256] view of X, equal bit for bit to
      the fits from pandas frames of the same rows, their extract spans (under
      0.1 s) beside the pandas fits'.
+   * phase 3o, the streamed (out-of-core) planes of kNN, DBSCAN and the
+     forests, every streaming key pinned (stream_threshold_bytes 1, under
+     the data): NearestNeighbors fit on the main items (8,388,608 x 256, 8.6
+     GB), which stay on the host (peak device memory under 1 GB above the
+     fit's start; the norms a tile at a time), then kneighbors at both
+     traffics with the device cache off and at 4 GiB, each bit-equal to
+     phase 3's in-core f32 search, the top-k kernel launched once a (query
+     block, item tile), the peak under the cache budget plus the tiles in
+     flight plus 1 GB, each call's seconds split into stream.ingest, the
+     kernel (select) and the merge (phase_streamed_pairwise); DBSCAN's
+     transform of phase 3's 262,144 x 32 rows streamed: its core counts
+     phase 3's one-launch counts bit for bit, its labels phase 3's up to the
+     borderline rule (check_db_rule; dbscan_band reads the library d2's
+     error at the stream's tile shapes too), its rounds phase 3's, the count
+     kernel launched once a (query block, tile); RandomForestClassifier at
+     MP_RF_TREES trees fit out-of-core on the forest rows (an Arrow view of
+     the memory-mapped rows, 12.8 GB of f32; phase_streamed_forest): the
+     peak under the uint8 bins plus the stats plus the batches in flight
+     plus 1 GB, the edges the quantiles of the strided sample, the resident
+     bins bin_features(X, edges) bit for bit, the trees the in-core growth
+     (grow_forest) from those bins bit for bit, RF_DEPTH histogram launches
+     a tree. Phase 3m's forest ranks fit the classifier out-of-core too,
+     equal to this one bit for bit, and its empty-rank case fits it
+     out-of-core with no rows on rank 1. Phase 3o alone, without the ranks:
+     `python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.streamed_main())'`.
    * phase 3m, the multi-process main path: two rank processes of this
      script (`--rank`, rank_main) join one torch.distributed group through
      the SRML_TPU_* variables, both on one card over gloo (and, where there
@@ -1717,7 +1742,8 @@ def forest_moved(torch, workdir, a, b) -> float:
     return float(((preds[0] - preds[1]).abs() > RF_REG_RTOL * preds[1].abs().max()).double().mean())
 
 
-def phase_multiprocess_forest(torch, workdir, clf_attrs, reg_attrs, launches, device) -> None:
+def phase_multiprocess_forest(torch, workdir, clf_attrs, reg_attrs, streamed_attrs, launches,
+                              device) -> None:
     """Phase 3m's forests: RandomForestClassifier and RandomForestRegressor at
     MP_RF_TREES trees (cut from RF_TREES for the time limit), depth RF_DEPTH,
     RF_BINS bins, on two rank processes each fitting its 60/40 share of the
@@ -1731,8 +1757,10 @@ def phase_multiprocess_forest(torch, workdir, clf_attrs, reg_attrs, launches, de
     (forest_moved: RF_REG_RTOL, RF_REG_MOVED), since the rule's 1e-5 on
     values is below the f32 floor of the carried child stats at this size
     (eps32 x the root's sums over a small node's weight); each rank launched
-    the level histogram once a level of each tree. The ranks' launches are
-    added to `launches`."""
+    the level histogram once a level of each tree. Then the classifier fit
+    out-of-core on the ranks (phase 3o): equal bit for bit, edges included,
+    to the one-process streamed fit's `streamed_attrs`. The ranks' launches
+    are added to `launches`."""
     on_card = device == "cuda"
     runs = [("gloo, one card", "0" if on_card else None)]
     if on_card and torch.cuda.device_count() >= MP_WORLD:
@@ -1748,18 +1776,23 @@ def phase_multiprocess_forest(torch, workdir, clf_attrs, reg_attrs, launches, de
             f = res["forest"]
             log(f"    rank {res['rank']}: rows [{f['rows'][0]}, {f['rows'][1]}), backend "
                 f"{res['backend']}, {res['device']} ({res['card']})")
-            for label in ("RF classifier", "RF regressor"):
+            for label in ("RF classifier", "RF regressor", "RF classifier, streamed"):
                 log_rank_call(res["rank"], label, f[label])
                 hist = f[label]["launches"]["node_bin_hist"]
                 if on_card:
                     require(hist == MP_RF_TREES * RF_DEPTH,
                             f"{run}: rank {res['rank']} {label}: {hist} histogram launches")
                 require(f[label]["comm"]["comm.collective_ops"]
-                        == 3 + (2 if label == "RF classifier" else 0) + MP_RF_TREES * RF_DEPTH,
+                        == 3 + (2 if "classifier" in label else 0) + MP_RF_TREES * RF_DEPTH,
                         f"{run}: rank {res['rank']} {label}: collectives {f[label]['comm']}")
                 if launches is not None:
                     for name, c in f[label]["launches"].items():
                         launches[name] += c
+        got = [res["forest"]["RF classifier, streamed"]["attrs"] for res in ranks]
+        require(all(bits_equal(g, streamed_attrs) for g in got),
+                f"{run}: the streamed classifier differs from the one-process streamed fit")
+        log(f"  {run}: RF classifier, streamed: the same bits on both ranks and the one-process "
+            f"streamed fit's (phase 3o) bit for bit, bin edges included")
         for label, ref in (("RF classifier", clf_attrs), ("RF regressor", reg_attrs)):
             got = [res["forest"][label]["attrs"] for res in ranks]
             require(all(bits_equal(g, got[0]) for g in got[1:]),
@@ -2030,11 +2063,16 @@ def phase_forest(torch, run_path, stages, path_counts, launches, reports) -> lis
         "RF regressor": (reg, RandomForestRegressor(**params), prefix, None,
                          {"n_features": D_RF}),
     }, tag="_forest")
-    del y_dev, rpred, df, X, prefix
+    del y_dev, rpred, df, prefix
     gc.collect()
     torch.cuda.empty_cache()
     try:
-        phase_multiprocess_forest(torch, workdir, a, ra, launches, "cuda")
+        streamed = phase_streamed_forest(torch, run_path, stages, path_counts, workdir, X, y_cls,
+                                         ycls)
+        del X, y_cls
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_multiprocess_forest(torch, workdir, a, ra, streamed, launches, "cuda")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -2681,6 +2719,234 @@ def arrow_table(pa, Xh, yh, w_h):
     feats = pa.FixedSizeListArray.from_arrays(pa.array(Xh.reshape(-1)), Xh.shape[1])
     return pa.table({"features": feats, "label": pa.array(yh), "weight": pa.array(w_h)})
 
+
+# --------------------------------------- phase 3o: the streamed pairwise tier
+
+
+def measured_call(torch, peaks, label, call):
+    """call() with the peak device memory above its start, the device-cache
+    and ingest counters and the pairwise tier's counters recorded under
+    peaks[label]."""
+    from spark_rapids_ml_torch.ops import device_cache, ingest
+    from spark_rapids_ml_torch.ops import pairwise_streaming as ps
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    device_cache.reset_counters()
+    ingest.reset_counters()
+    ps.reset_counters()
+    out = call()
+    torch.cuda.synchronize()
+    peaks[label] = (torch.cuda.max_memory_allocated() - base, dict(device_cache.counters),
+                    dict(ingest.counters), dict(ps.counters))
+    return out
+
+
+def phase_streamed_pairwise(torch, run_path, stages, path_counts, Xh, X, Qh10, query_ids,
+                            knn_refs, db_ref) -> None:
+    """Phase 3o (kNN, DBSCAN): NearestNeighbors fit on the main items with the
+    stream threshold pinned below them (the items stay on the host; the norms
+    a tile at a time), then kneighbors at both traffics with the device cache
+    off and at STREAM_CACHE_MAIN, each bit-equal to phase 3's in-core f32
+    search (knn_refs), launching the top-k kernel once a (query block, item
+    tile); and DBSCAN's transform of phase 3's rows streamed, its core
+    counts phase 3's one-launch counts bit for bit, its labels phase 3's up
+    to the borderline rule (check_db_rule), its rounds phase 3's, the count
+    kernel launched once a (query block, tile). Peak device memory: the fit
+    under 1 GB above its start, each search under the cache budget plus the
+    tiles in flight plus 1 GB."""
+    import pandas as pd
+
+    from spark_rapids_ml_torch import config as torch_config
+    from spark_rapids_ml_torch.clustering import DBSCAN
+    from spark_rapids_ml_torch.knn import NearestNeighbors
+    from spark_rapids_ml_torch.ops import dbscan as dbscan_mod
+    from spark_rapids_ml_torch.ops import knn as knn_ops
+    from spark_rapids_ml_torch.ops import pairwise_streaming as ps
+
+    block = ps.ITEM_BLOCK
+    tiles = -(-N_MAIN // block)
+    in_flight = ps.tile_bytes(block, D_MAIN)
+    log(f"phase 3o: the streamed pairwise tier: NearestNeighbors on {N_MAIN} x {D_MAIN} items "
+        f"({Xh.nbytes / 1e9:.3f} GB) in {tiles} tiles of {block} rows, query blocks of "
+        f"{ps.KNN_QUERY_BLOCK}; DBSCAN on {N_DB} x {D_DB} in query blocks of "
+        f"{ps.DBSCAN_QUERY_BLOCK}; stream_threshold_bytes 1")
+    peaks = {}
+    pin_stream_keys(torch_config, 1, STREAM_BATCH_MAIN, None)
+    try:
+        nn = run_path("NearestNeighbors fit, streamed", lambda: measured_call(
+            torch, peaks, "NearestNeighbors fit, streamed",
+            lambda: NearestNeighbors(k=K_KNN, inputCol="features", idCol="id").fit(Xh)))
+    finally:
+        pin_in_core(torch_config)
+    peak, _, ingest_c, ps_c = peaks["NearestNeighbors fit, streamed"]
+    norms = nn.get_model_attributes()["item_norms_sq"]
+    same_norms = bits_equal(norms, knn_ops.center_norms_sq(X).cpu())
+    log(f"  NearestNeighbors fit, streamed: {stages['NearestNeighbors fit, streamed'][0]:.4f} s "
+        f"(in-core {stages['NearestNeighbors fit'][0]:.4f} s); {ps_c['knn.x2_tile_computes']} tile "
+        f"norms, H2D {ingest_c['h2d_bytes'] / 1e9:.3f} GB in {ingest_c['h2d_s']:.4f} s; peak "
+        f"device memory above its start {peak / 1e9:.4f} GB (limit 1 GB); the norms equal the "
+        f"in-core fit's (center_norms_sq of all X) bit for bit: {same_norms}")
+    require(nn._staged is None, "the streamed kNN fit staged its items")
+    require(peak <= 1 << 30, f"the streamed kNN fit's peak device memory {peak}")
+    require(ps_c["knn.x2_tile_computes"] == tiles, "the streamed kNN fit's tile norms")
+    qdf = pd.DataFrame({"features": list(Xh[:NQ_KNN])})
+    qdf10 = pd.DataFrame({"features": list(Qh10), "id": query_ids})
+    for cache_tag, budget in (("cache off", None), ("cache 4 GiB", STREAM_CACHE_MAIN)):
+        pin_stream_keys(torch_config, 1, STREAM_BATCH_MAIN, budget)
+        try:
+            for tag, k, frame in (("bench", K_KNN, qdf), ("k=10", K_KNN10, qdf10)):
+                nn.setK(k)
+                label = f"NearestNeighbors kneighbors {tag}, streamed, {cache_tag}"
+                out = run_path(label, lambda: measured_call(
+                    torch, peaks, label, lambda: nn.kneighbors(frame)))
+                peak, cache_c, ingest_c, ps_c = peaks[label]
+                total, spans = stages[label]
+                nq = len(frame)
+                want = tiles * -(-nq // ps.KNN_QUERY_BLOCK)
+                limit = (budget or 0) + in_flight + (1 << 30)
+                got = knn_arrays(out[2])
+                log(f"  {label}: {total:.4f} s ({nq / total:.4g} queries/s): stream.ingest "
+                    f"{spans.get('stream.ingest', 0.0):.4f} s, the kernel (select) "
+                    f"{spans.get('select', 0.0):.4f} s, the merge {spans.get('merge', 0.0):.4f} s, "
+                    f"other {total - sum(spans.values()):.4f} s; {cache_c['uploads']} uploads, "
+                    f"H2D {ingest_c['h2d_bytes'] / 1e9:.3f} GB in {ingest_c['h2d_s']:.4f} s, cache "
+                    f"hits {cache_c['hits']}; {ps_c['knn.x2_tile_computes']} tile norms computed; "
+                    f"topk launches {path_counts[label]['topk']} (query blocks x tiles {want}); "
+                    f"peak device memory above its start {peak / 1e9:.4f} GB (limit "
+                    f"{limit / 1e9:.3f}: cache budget + the tiles in flight + 1 GB)")
+                require(bits_equal(got, knn_refs[(tag, "float32")]),
+                        f"{label}: differs from phase 3's in-core f32 search")
+                require(path_counts[label]["topk"] == want and ps_c["knn.x2_tile_computes"] == 0,
+                        f"{label}: {path_counts[label]['topk']} top-k launches, "
+                        f"{ps_c['knn.x2_tile_computes']} tile norms")
+                require(peak <= limit, f"{label}: peak device memory {peak} > {limit}")
+        finally:
+            pin_in_core(torch_config)
+    log("  streamed kneighbors at both traffics equals phase 3's in-core f32 search bit for "
+        "bit, with the device cache off and at 4 GiB")
+    del nn
+
+    # DBSCAN: the core counts recorded from the streamed sweep
+    counted, real_counts = [], ps._streamed_counts
+
+    def recorded(*args):
+        counted.append(real_counts(*args))
+        return counted[-1]
+
+    pin_stream_keys(torch_config, 1, STREAM_BATCH_MAIN, STREAM_CACHE_MAIN)
+    ps._streamed_counts = recorded
+    try:
+        db = DBSCAN(eps=DB_EPS, min_samples=DB_MIN_SAMPLES).fit(db_ref["X"])
+        rounds0 = dbscan_mod._propagate_labels.rounds
+        label = "DBSCAN transform, streamed"
+        out = run_path(label, lambda: measured_call(torch, peaks, label,
+                                                    lambda: db.transform(db_ref["X"])))
+        rounds = dbscan_mod._propagate_labels.rounds - rounds0
+    finally:
+        ps._streamed_counts = real_counts
+        pin_in_core(torch_config)
+    peak, cache_c, ingest_c, ps_c = peaks[label]
+    total, spans = stages[label]
+    db_tiles = -(-N_DB // block)
+    want = db_tiles * -(-N_DB // ps.DBSCAN_QUERY_BLOCK)
+    log(f"  {label}: {total:.4f} s (in-core {stages['DBSCAN transform'][0]:.4f} s); spans "
+        f"{json.dumps({k: round(v, 4) for k, v in spans.items()})}; {rounds} rounds (phase 3: "
+        f"{db_ref['rounds']}), count launches {path_counts[label]['count']} (query blocks x tiles "
+        f"{want}), {cache_c['uploads']} tile uploads, cache hits {cache_c['hits']}; peak device "
+        f"memory above its start {peak / 1e9:.4f} GB")
+    require(len(counted) == 1 and bits_equal(counted[0].astype(np.int64), db_ref["counts"]),
+            f"{label}: the core counts differ from phase 3's one-launch counts")
+    require(rounds == db_ref["rounds"] and ps_c["dbscan.rounds"] == rounds,
+            f"{label}: {rounds} rounds, phase 3 {db_ref['rounds']}")
+    require(path_counts[label]["count"] == want, f"{label}: count launches")
+    check_db_rule(label, counted[0].astype(np.int64), out["prediction"].to_numpy(), db_ref)
+    log(f"  {label}: the core counts equal phase 3's one-launch counts bit for bit")
+
+
+
+def phase_streamed_forest(torch, run_path, stages, path_counts, workdir, X, y_cls, ycls) -> dict:
+    """Phase 3o (forest): RandomForestClassifier at MP_RF_TREES trees, depth
+    RF_DEPTH, RF_BINS bins, fit out-of-core on the forest rows (an Arrow view
+    of the memory-mapped WORKDIR/rf_X.npy, 12.8 GB of f32) with the stream
+    threshold pinned below them: its peak device memory above its start under
+    the uint8 bins plus the stats plus the batches in flight plus 1 GB (X is
+    never whole on the card); its edges the quantiles of every
+    (n // 200,000)-th row; its resident bins bin_features(X, edges) of the
+    rows on the card (X, y_cls) bit for bit; its trees the shared growth
+    (ops/trees.py::grow_forest) run in-core from those bins and the labels'
+    stats bit for bit; RF_DEPTH histogram launches a tree. Returns the
+    model's attributes, which phase 3m's ranks are held to."""
+    import pyarrow as pa
+
+    from spark_rapids_ml_torch import config as torch_config
+    from spark_rapids_ml_torch.classification import RandomForestClassifier
+    from spark_rapids_ml_torch.ops import streaming, trees
+
+    Xmm = np.load(workdir / "rf_X.npy", mmap_mode="r")
+    n, d = Xmm.shape
+    table = pa.table({"features": pa.FixedSizeListArray.from_arrays(pa.array(Xmm.reshape(-1)), d),
+                      "label": pa.array(ycls)})
+    params = dict(numTrees=MP_RF_TREES, maxDepth=RF_DEPTH, maxBins=RF_BINS, seed=SEED)
+    log(f"phase 3o (forest): RandomForestClassifier streamed at {n} x {d} ({Xmm.nbytes / 1e9:.1f} "
+        f"GB of f32 on the host), {MP_RF_TREES} trees, depth {RF_DEPTH}, {RF_BINS} bins, "
+        f"{STREAM_BATCH_MAIN} rows a batch, stream_threshold_bytes 1")
+    grown, real_grow = [], trees.grow_forest
+
+    def recorded(*args, **kwargs):
+        grown.append((args, kwargs))
+        return real_grow(*args, **kwargs)
+
+    peaks = {}
+    label = "RF classifier fit, streamed"
+    pin_stream_keys(torch_config, 1, STREAM_BATCH_MAIN, None)
+    trees.grow_forest = recorded
+    try:
+        model = run_path(label, lambda: measured_call(
+            torch, peaks, label, lambda: RandomForestClassifier(**params).fit(table)))
+    finally:
+        trees.grow_forest = real_grow
+        pin_in_core(torch_config)
+    attrs = model.get_model_attributes()
+    peak, _, ingest_c, _ = peaks[label]
+    total, spans = stages[label]
+    (args, kwargs), = grown
+    Xb, stats, edges = args[:3]
+    in_flight = streaming.in_flight_bytes(STREAM_BATCH_MAIN, d, 4)
+    limit = Xb.numel() + 4 * stats.numel() + in_flight + (1 << 30)
+    log(f"  {label}: {total:.4f} s; spans {json.dumps({k: round(v, 4) for k, v in spans.items()})}; "
+        f"H2D {ingest_c['h2d_bytes'] / 1e9:.3f} GB in {ingest_c['h2d_s']:.4f} s of the host's "
+        f"upload calls; peak device memory above its start {peak / 1e9:.4f} GB (limit "
+        f"{limit / 1e9:.4f}: the bins {Xb.numel() / 1e9:.3f} + the stats "
+        f"{4 * stats.numel() / 1e9:.3f} + the batches in flight {in_flight / 1e9:.3f} + 1 GB); "
+        f"histogram launches {path_counts[label]['node_bin_hist']}")
+    require(peak <= limit, f"{label}: peak device memory {peak} > {limit}")
+    require(path_counts[label]["node_bin_hist"] == MP_RF_TREES * RF_DEPTH,
+            f"{label}: {path_counts[label]['node_bin_hist']} histogram launches")
+    sample = torch.from_numpy(np.ascontiguousarray(Xmm[:: max(1, n // 200_000)]))
+    edges_ref = trees.quantile_bin_edges(sample, RF_BINS, seed=SEED)
+    require(bits_equal(edges, edges_ref) and bits_equal(attrs["bin_edges"], edges_ref),
+            f"{label}: the edges differ from the strided sample's quantiles")
+    del sample
+    t0 = time.perf_counter()
+    ref_bins = trees.bin_features(X, torch.from_numpy(edges).to(X.device))
+    require(Xb.dtype == torch.uint8 and torch.equal(Xb, ref_bins),
+            f"{label}: the resident bins differ from bin_features(X, edges)")
+    del ref_bins
+    stats_ref = torch.zeros((n, 2), dtype=torch.float32, device=X.device)
+    stats_ref.scatter_(1, y_cls.long()[:, None], 1.0)
+    require(torch.equal(stats, stats_ref), f"{label}: the row stats differ from the labels'")
+    again = real_grow(Xb, stats_ref, edges, *args[3:], **kwargs)
+    require(bits_equal(first_trees(again, MP_RF_TREES), first_trees(attrs, MP_RF_TREES)),
+            f"{label}: the trees differ from the in-core growth from the same bins")
+    log(f"  {label}: the edges are the strided sample's quantiles, the resident uint8 bins "
+        f"bin_features(X, edges) of the rows on the card, and the trees the in-core growth from "
+        f"those bins (grow_forest), each bit for bit ({time.perf_counter() - t0:.1f} s)")
+    del args, kwargs, grown, Xb, stats, stats_ref, table
+    return attrs
+
+
 # ------------------------------------------------ phase 3m: across processes
 
 MP_WORLD = 2
@@ -2811,6 +3077,75 @@ def multiprocess_main() -> int:
     return 0
 
 
+def streamed_main() -> int:
+    """Phase 3o alone on the card, with the in-core results it is held to
+    made first (phase 3's f32 kNN searches and DBSCAN transform with its
+    band; the forest rows on the card): the streamed kNN, DBSCAN and
+    classifier, not phase 3m's ranks (about five minutes of command time):
+    `python3 -c 'import sys, chip_smoke; sys.exit(chip_smoke.streamed_main())'`."""
+    import torch
+
+    from spark_rapids_ml_torch import config as torch_config
+    from spark_rapids_ml_torch.knn import NearestNeighbors
+    from spark_rapids_ml_torch.ops import _cuda
+    from spark_rapids_ml_torch.utils import record_spans
+
+    require(torch.cuda.is_available(), "phase 3o needs a CUDA card")
+    log(f"card: {nvidia_smi()}")
+    _cuda.build()
+    counters = launch_counters()
+    stages, path_counts = {}, {}
+
+    def run_path(label, call):
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with record_spans() as spans:
+            out = call()
+        torch.cuda.synchronize()
+        stages[label] = (time.perf_counter() - t0, spans)
+        path_counts[label] = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+        return out
+
+    pin_in_core(torch_config)
+    Xh, true_centers = blobs(N_MAIN, D_MAIN, K_MAIN, SEED)
+    X = torch.from_numpy(Xh).cuda()
+    Q10, _ = knn10_queries(Xh, true_centers)
+    query_ids = np.arange(NQ_KNN10, dtype=np.int64) + 10**9
+    nn = run_path("NearestNeighbors fit", lambda: NearestNeighbors(
+        k=K_KNN, inputCol="features", idCol="id").fit(Xh))
+    refs = {}
+    for tag, k, Q in (("bench", K_KNN, Xh[:NQ_KNN]), ("k=10", K_KNN10, Q10)):
+        nn.setK(k)
+        refs[(tag, "float32")] = knn_arrays(nn.kneighbors(Q)[2])
+    del nn
+    db_ref = dbscan_single_ref(torch)
+    stages["DBSCAN transform"] = (float("nan"), {})
+    phase_streamed_pairwise(torch, run_path, stages, path_counts, Xh, X, Q10, query_ids, refs,
+                            db_ref)
+    del Xh, X
+    gc.collect()
+    torch.cuda.empty_cache()
+    Xh, ycls = forest_data(N_RF, D_RF, SEED)
+    workdir = mp_workdir("phase3o_forest")
+    try:
+        Xf = np.lib.format.open_memmap(workdir / "rf_X.npy", mode="w+", dtype=np.float32,
+                                       shape=Xh.shape)
+        for r0 in range(0, N_RF, RF_CHUNK):
+            Xf[r0 : r0 + RF_CHUNK] = Xh[r0 : r0 + RF_CHUNK]
+        Xf.flush()
+        del Xf
+        X = torch.from_numpy(Xh).cuda().contiguous()
+        del Xh
+        phase_streamed_forest(torch, run_path, stages, path_counts, workdir, X,
+                              torch.from_numpy(ycls).cuda(), ycls)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log("phase 3o passed")
+    return 0
+
+
 def dbscan_mp_main() -> int:
     """Phase 3m's DBSCAN alone on the card, with the single-process transform
     it is held to made first (dbscan_single_ref, the band's readings with it):
@@ -2872,13 +3207,15 @@ def dbscan_band(torch, X, counts, cut: int) -> dict:
     two readings, in those units, that the band must cover twice over:
     "f32", the largest error against f64 of the library f32 d2 that the
     min-label scan takes (ops/knn.py::_block_sq_dists) for DB_BAND_SAMPLE rows
-    spread over X against every row, at one process's shape and at the
-    ring's (rows [0, cut) and the rest padded to as many); "count", the least
+    spread over X against every row, at one process's shape, at the ring's
+    (rows [0, cut) and the rest padded to as many) and at the streamed
+    tier's (its first tile of ITEM_BLOCK rows and its last, padded); "count", the least
     band that explains the count kernel's `counts` against the exact f64
     counts at every row (a row counted m too many has at least m pairs above
     eps^2 counted: the m-th nearest above; too few, below). Fails when a
     reading exceeds half the band."""
     from spark_rapids_ml_torch.ops.knn import _block_sq_dists
+    from spark_rapids_ml_torch.ops.pairwise_streaming import ITEM_BLOCK
 
     t0 = time.perf_counter()
     n, eps2 = X.shape[0], DB_EPS * DB_EPS
@@ -2911,8 +3248,13 @@ def dbscan_band(torch, X, counts, cut: int) -> dict:
     sample = every[:: max(1, n // DB_BAND_SAMPLE)][:DB_BAND_SAMPLE]
     shard = torch.zeros((cut, X.shape[1]), dtype=X.dtype, device=X.device)
     shard[: n - cut] = X[cut:]
+    # the streamed tier's tiles (phase 3o): ITEM_BLOCK rows, the last zero-padded
+    tile = min(ITEM_BLOCK, n)
+    last = (n - 1) // tile * tile
+    tail = torch.zeros((tile, X.shape[1]), dtype=X.dtype, device=X.device)
+    tail[: n - last] = X[last:]
     f32_read = 0.0
-    for lo, items in ((0, X), (0, X[:cut]), (cut, shard)):
+    for lo, items in ((0, X), (0, X[:cut]), (cut, shard), (0, X[:tile]), (last, tail)):
         hi = min(n, lo + items.shape[0])
         x2 = torch.sum(items * items, dim=1)
         for b in range(0, len(sample), step):
@@ -2924,7 +3266,7 @@ def dbscan_band(torch, X, counts, cut: int) -> dict:
     ends = int((near > 0).sum())
     log(f"  DBSCAN band: {DB_BAND_ULPS:g} units of 2^-23 (|a|^2 + |b|^2) about eps^2; readings "
         f"in those units: f32 library d2 {f32_read:.4f} (max over {len(sample)} rows x {n}, at "
-        f"one process's and the ring's shapes), count kernel {count_read:.4f} (the least band "
+        f"one process's, the ring's and the stream's tile shapes), count kernel {count_read:.4f} (the least band "
         f"explaining its counts against f64 at every row; {len(wrong)} rows off f64 by "
         f"{int(delta.abs().sum())}); rows at an end of a borderline pair {ends} "
         f"({ends / n:.4%}), borderline pairs {int(near.sum()) // 2}; "
@@ -3012,9 +3354,11 @@ def mp_small_data():
 
 
 def mp_small_fits(X, y, w, c):
-    """The empty-rank case's fits (in-core): label -> model attributes; and
-    "NearestNeighbors": the (ids, distances) of the kNN search of its first
-    MP_KNN_SMALL_QUERIES rows (none on a rank without rows)."""
+    """The empty-rank case's fits (in-core, and the classifier also
+    out-of-core): label -> model attributes; and "NearestNeighbors": the
+    (ids, distances) of the kNN search of its first MP_KNN_SMALL_QUERIES rows
+    (none on a rank without rows)."""
+    from spark_rapids_ml_torch import config as torch_config
     from spark_rapids_ml_torch.classification import RandomForestClassifier
     from spark_rapids_ml_torch.knn import NearestNeighbors
     from spark_rapids_ml_torch.regression import RandomForestRegressor
@@ -3025,6 +3369,12 @@ def mp_small_fits(X, y, w, c):
     params = dict(numTrees=MP_RF_TREES, maxDepth=RF_DEPTH, maxBins=RF_BINS, seed=SEED)
     out["RF classifier"] = RandomForestClassifier(**params).fit(
         labelled_input(X, c, w)).get_model_attributes()
+    pin_stream_keys(torch_config, 1, STREAM_BATCH_MAIN, None)
+    try:
+        out["RF classifier, streamed"] = RandomForestClassifier(**params).fit(
+            labelled_input(X, c, w)).get_model_attributes()
+    finally:
+        pin_in_core(torch_config)
     out["RF regressor"] = RandomForestRegressor(**params).fit(table).get_model_attributes()
     nn = NearestNeighbors(k=K_KNN10, inputCol="features").fit(X)
     out["NearestNeighbors"] = knn_arrays(nn.kneighbors(X[:MP_KNN_SMALL_QUERIES])[2])
@@ -3106,11 +3456,13 @@ def rank_knn(torch, part, Xmm, rank, workdir, counters, sync) -> dict:
 def rank_forest(torch, rank, workdir, counters, sync) -> dict:
     """Phase 3m's forest runs on one rank: RandomForestClassifier and
     RandomForestRegressor at MP_RF_TREES trees on its 60/40 share of the
-    forest data, from an Arrow table over the memory-mapped rows."""
+    forest data, from an Arrow table over the memory-mapped rows; then the
+    classifier out-of-core (every streaming key pinned)."""
     import os
 
     import pyarrow as pa
 
+    from spark_rapids_ml_torch import config as torch_config
     from spark_rapids_ml_torch.classification import RandomForestClassifier
     from spark_rapids_ml_torch.regression import RandomForestRegressor
 
@@ -3122,7 +3474,8 @@ def rank_forest(torch, rank, workdir, counters, sync) -> dict:
     out = {"rows": (lo, hi)}
     split_gains = trees._split_gains
     for label, est, y in (("RF classifier", RandomForestClassifier, "rf_ycls"),
-                          ("RF regressor", RandomForestRegressor, "rf_yreg")):
+                          ("RF regressor", RandomForestRegressor, "rf_yreg"),
+                          ("RF classifier, streamed", RandomForestClassifier, "rf_ycls")):
         yl = np.load(os.path.join(workdir, f"{y}.npy"), mmap_mode="r")[lo:hi]
         feats = pa.FixedSizeListArray.from_arrays(pa.array(X[lo:hi].reshape(-1)), X.shape[1])
         table = pa.table({"features": feats, "label": pa.array(yl)})
@@ -3135,10 +3488,13 @@ def rank_forest(torch, rank, workdir, counters, sync) -> dict:
 
         if label == "RF regressor":
             trees._split_gains = recorded
+        if label.endswith("streamed"):
+            pin_stream_keys(torch_config, 1, STREAM_BATCH_MAIN, None)
         try:
             model, out[label] = rank_call(torch, counters, sync, lambda: est(**params).fit(table))
         finally:
             trees._split_gains = split_gains
+            pin_in_core(torch_config)
         out[label]["attrs"] = model.get_model_attributes()
         out[label]["top2"] = top2
         del model, table, feats
@@ -3432,33 +3788,43 @@ def check_mp_dbscan(run, ranks, ref, launches, on_card, backend=None) -> None:
             require(f["launches"]["count"] == len(ranks),
                     f"{run}: DBSCAN rank {r['rank']} launched count {f['launches']['count']} "
                     f"times, not once a hop ({len(ranks)})")
+    check_db_rule(f"{run}: DBSCAN across {len(ranks)} ranks",
+                  np.concatenate([r["dbscan"]["counts"] for r in ranks]),
+                  np.concatenate([r["dbscan"]["labels"] for r in ranks]), ref)
+    log(f"  {run}: DBSCAN {ranks[0]['dbscan']['rounds']} rounds on every rank (phase 3: "
+        f"{ref['rounds']}); {ranks[0]['dbscan']['comm']['comm.collective_ops']} collectives, "
+        f"{ranks[0]['dbscan']['comm']['comm.collective_bytes']} bytes a rank")
+
+
+def check_db_rule(run, counts, got, ref) -> None:
+    """The borderline rule against phase 3's single-process transform (ref;
+    ref["near"] counts each row's borderline pairs): the eps-counts `counts`
+    equal ref's one-launch counts at every row, but by at most a row's
+    borderline pairs at their ends; a core flag flips only at such an end;
+    the labels `got` are equal as numbers at every row but the ends and the
+    rows of a cluster, in either labeling, holding a flipped row; and at most
+    DB_MOVED_SHARE of the rows take another label."""
     near = ref["near"]
     ends = near > 0
-    counts = np.concatenate([r["dbscan"]["counts"] for r in ranks])
     off = np.abs(counts - ref["counts"])
     flips = (counts >= DB_MIN_SAMPLES) != (ref["counts"] >= DB_MIN_SAMPLES)
-    log(f"  {run}: DBSCAN eps-counts summed over the ring's hops against phase 3's one-launch "
-        f"counts: {int((off > 0).sum())} rows differ ({int((off > near).sum())} by more than "
-        f"their borderline pairs), {int(flips.sum())} core flips ({int((flips & ~ends).sum())} "
-        f"at rows with no borderline pair)")
+    log(f"  {run}: eps-counts against phase 3's one-launch counts: {int((off > 0).sum())} rows "
+        f"differ ({int((off > near).sum())} by more than their borderline pairs), "
+        f"{int(flips.sum())} core flips ({int((flips & ~ends).sum())} at rows with no "
+        f"borderline pair)")
     require(not (off > near).any(),
-            f"{run}: DBSCAN ring counts differ from one launch's beyond the borderline pairs")
+            f"{run}: DBSCAN counts differ from one launch's beyond the borderline pairs")
     require(not (flips & ~ends).any(), f"{run}: DBSCAN core flips at rows with no borderline pair")
-    got = np.concatenate([r["dbscan"]["labels"] for r in ranks])
     allowed = ends | flips
     for labels in (got, ref["labels"]):
         keys = cluster_keys(labels)
         allowed |= np.isin(keys, keys[flips])
     moved = got != ref["labels"]
-    log(f"  {run}: DBSCAN across {len(ranks)} ranks: labels of {len(got)} rows against phase "
-        f"3's single-process transform: {int(moved.sum())} rows take another label (at most "
-        f"{DB_MOVED_SHARE * len(got):g}), {int((moved & ~allowed).sum())} of them out of the "
-        f"rule's reach; rows the rule reaches {int(allowed.sum())} ({allowed.mean():.4%}; "
-        f"borderline pair ends {int(ends.sum())}); rows in another cluster "
-        f"{int(disagreeing_rows(got, ref['labels']).sum())}; "
-        f"{ranks[0]['dbscan']['rounds']} rounds on every rank (phase 3: {ref['rounds']}); "
-        f"{ranks[0]['dbscan']['comm']['comm.collective_ops']} collectives, "
-        f"{ranks[0]['dbscan']['comm']['comm.collective_bytes']} bytes a rank")
+    log(f"  {run}: labels of {len(got)} rows against phase 3's single-process transform: "
+        f"{int(moved.sum())} rows take another label (at most {DB_MOVED_SHARE * len(got):g}), "
+        f"{int((moved & ~allowed).sum())} of them out of the rule's reach; rows the rule reaches "
+        f"{int(allowed.sum())} ({allowed.mean():.4%}; borderline pair ends {int(ends.sum())}); "
+        f"rows in another cluster {int(disagreeing_rows(got, ref['labels']).sum())}")
     require(not (moved & ~allowed).any(),
             f"{run}: DBSCAN labels differ from the single process out of the rule's reach")
     require(moved.sum() <= DB_MOVED_SHARE * len(got),
@@ -4234,14 +4600,16 @@ def main() -> int:
     arrow_ran = phase_arrow(torch, run_path, stages, Xh, yh, w_h, kmw, ols)
     log(f"  H2D GB/s by route: {json.dumps({k: round(v, 3) for k, v in routes.items()})}; "
         f"phase 3a {'ran' if arrow_ran else 'not run'}")
+    db_ref = {"X": Xdb_h, "labels": db_out["prediction"].to_numpy(), "rounds": rounds,
+              "counts": counts_k.long().cpu().numpy(), **db_band}
+    phase_streamed_pairwise(torch, run_path, stages, path_counts, Xh, X, Qh_knn10, query_ids,
+                            knn_refs, db_ref)
     phase_multiprocess(torch, Xh, yh, w_h, X, {
         "pca": pca, "pca_streamed": streamed["PCA fit, streamed, cache off"],
         "beta64": beta64.cpu().numpy(), "en64": en64["coefficients"],
         "ols": ols.coefficients, "en": en.coefficients,
         "ols_streamed": streamed["LinReg OLS fit, streamed, cache off"].coefficients,
-        "q10": Qh_knn10, "knn": knn_refs,
-        "db": {"X": Xdb_h, "labels": db_out["prediction"].to_numpy(), "rounds": rounds,
-               "counts": counts_k.long().cpu().numpy(), **db_band}},
+        "q10": Qh_knn10, "knn": knn_refs, "db": db_ref},
         launches)
     del streamed
 

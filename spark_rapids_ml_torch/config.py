@@ -23,9 +23,12 @@
 # The streamed out-of-core fit (ops/streaming.py) and its ingest (ops/ingest.py,
 # ops/device_cache.py); the JAX package's keys of the same names:
 #   stream_threshold_bytes  (int, env SRML_TORCH_STREAM_THRESHOLD_BYTES) PCA,
-#                     KMeans and LinearRegression stream their rows through the
-#                     device in batches when n_rows * n_cols * itemsize exceeds
-#                     it; 0 or None turns streaming off. Default "auto": on the
+#                     KMeans, LinearRegression and both random forests stream
+#                     their rows through the device in batches when n_rows *
+#                     n_cols * itemsize exceeds it, and in one process DBSCAN's
+#                     transform and a kNN item set above it stay on the host
+#                     (ops/pairwise_streaming.py); 0 or None turns streaming
+#                     off. Default "auto": on the
 #                     card half of its total memory (40 GB on an 80 GB H100: an
 #                     X that large leaves no room for the fit's own buffers
 #                     in-core), on the CPU the JAX package's 4 GiB, so CPU runs
@@ -37,8 +40,9 @@
 #   stream_batch_rows (int, env SRML_TORCH_STREAM_BATCH_ROWS)  rows per streamed
 #                     batch, default 1 << 20 (the JAX package's).
 #   cache.enabled     (bool, env SRML_TORCH_CACHE_ENABLED)     keep the batches of
-#                     a multi-pass streamed fit (KMeans) on the device and replay
-#                     them in later passes; default True.
+#                     a multi-pass streamed fit (KMeans; the item tiles of a
+#                     streamed kNN search or DBSCAN transform) on the device and
+#                     replay them in later passes; default True.
 #   cache.hbm_budget_bytes (int, env SRML_TORCH_CACHE_HBM_BUDGET_BYTES) the
 #                     cache's byte budget; an X above it caches a prefix of its
 #                     batches and streams the rest every pass. Default "auto":

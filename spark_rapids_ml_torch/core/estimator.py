@@ -15,10 +15,12 @@
 # the CPU the tensor shares the host array.
 #
 # Out-of-core dispatch (the JAX package's core/estimator.py:344-366): an
-# estimator with a `_streaming_fit` (PCA, KMeans, LinearRegression) whose design
-# matrix exceeds config.stream_threshold_bytes streams its rows through the
-# device in batches (ops/streaming.py) inside one device batch-cache scope
-# (ops/device_cache.py), freed at the fit's exit.
+# estimator with a `_streaming_fit` (PCA, KMeans, LinearRegression, both
+# random forests) whose design matrix exceeds config.stream_threshold_bytes
+# streams its rows through the device in batches (ops/streaming.py) inside one
+# device batch-cache scope (ops/device_cache.py), freed at the fit's exit. A
+# model whose `_transform_host` takes the block (DBSCAN's above the threshold)
+# transforms it out-of-core, and nothing is staged whole.
 #
 # Across processes (the JAX package's core/estimator.py:203-287 and the
 # barrier task body of spark/integration.py:171-356): under a multi-process
@@ -248,6 +250,13 @@ class _TorchModel(_TorchClass, _TorchParams, Persistable):
         (reference core.py:1389-1396)."""
         return cls(**attrs)
 
+    def _transform_host(self, X: np.ndarray, device: torch.device
+                        ) -> Optional[Dict[str, np.ndarray]]:
+        """The outputs of a transform that keeps the host block X on the host
+        (a streamed, out-of-core transform), or None: X is then staged on the
+        device whole and `_transform_arrays` runs."""
+        return None
+
     @abstractmethod
     def _transform_arrays(self, X: torch.Tensor) -> Dict[str, np.ndarray]:
         """Map a staged feature block to named host output arrays (the reference's
@@ -270,10 +279,12 @@ class _TorchModel(_TorchClass, _TorchParams, Persistable):
                     float32=self._float32_inputs,
                 )
             X = ensure_dtype(fd.features, float32=self._float32_inputs)
-        with span("stage"):
-            X = stage(X, device)
-        with span("compute"):  # the kernel and the copy of its output to the host
-            outputs = self._transform_arrays(X)
+        outputs = self._transform_host(X, device)
+        if outputs is None:
+            with span("stage"):
+                X = stage(X, device)
+            with span("compute"):  # the kernel and the copy of its output to the host
+                outputs = self._transform_arrays(X)
         with span("output"):
             return append_output_columns(dataset, outputs)
 

@@ -15,8 +15,15 @@
 #   * save/load in the JAX package's directory format (core/persistence.py):
 #     the model has no fitted state and writes an empty attributes.json
 #
+#   * out-of-core (one process): when the rows' f32 bytes exceed
+#     config.stream_threshold_bytes, transform() keeps them on the host and
+#     clusters them through ops/pairwise_streaming.py (the count kernel and the
+#     min-label scan a tile at a time), before anything is staged
+#
 # Not ported: f64 features (raise NotImplementedError on every rank, before
-# any collective), the streamed (out-of-core) plane, the sklearn twin.
+# any collective), the streamed ring under a process group (a group keeps the
+# in-core ring whatever the size), the mesh variants of the JAX package's
+# streamed tier, the sklearn twin.
 #
 
 from __future__ import annotations
@@ -26,10 +33,12 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from .. import config as _config
 from ..core.backend_params import HasFeaturesCols, HasIDCol, _TorchClass
 from ..core.estimator import _TorchEstimator, _TorchModel
 from ..core.params import HasFeaturesCol, HasPredictionCol, Param, ParamMap, TypeConverters
 from ..ops.dbscan import dbscan_fit_predict
+from ..ops.pairwise_streaming import streaming_dbscan_fit_predict
 from ..parallel.partitioner import active_partitioner
 
 
@@ -168,6 +177,19 @@ class DBSCANModel(_DBSCANClass, _TorchModel, _DBSCANParams):
         super().__init__()
         self._set_defaults()
         self.initialize_torch_params()
+
+    def _transform_host(self, X: np.ndarray, device: torch.device
+                        ) -> Optional[Dict[str, np.ndarray]]:
+        """The out-of-core transform (module header) when the rows exceed the
+        stream threshold in one process; else None, and they are staged."""
+        threshold = _config.stream_threshold_bytes(device)
+        if active_partitioner().is_multiprocess or not threshold or X.nbytes <= threshold:
+            return None
+        labels = streaming_dbscan_fit_predict(
+            X, eps=self.getOrDefault("eps"), min_samples=self.getOrDefault("min_samples"),
+            device=device, metric=self.getOrDefault("metric"),
+        )
+        return {self.getOrDefault("predictionCol"): labels}
 
     def _transform_arrays(self, X: torch.Tensor) -> Dict[str, np.ndarray]:
         part = active_partitioner()

@@ -38,13 +38,22 @@
 # process; under a group its search raises NotImplementedError, before any
 # collective.
 #
-# The items stay on the device between calls: fit stages them once, and a model
-# built from attributes stages them at its first search. They must fit the
-# card: the JAX package's out-of-core scan above `stream_threshold_bytes` is
-# not ported, and a search that does not fit raises.
+# In-core (the items' f32 bytes at or below config.stream_threshold_bytes) the
+# items stay on the device between calls: fit stages them once, and a model
+# built from attributes stages them at its first search; a search that does
+# not fit the card raises MemoryError. Above the threshold, in one process,
+# the items stay on the host (the JAX package's out-of-core tier): fit
+# computes their squared norms a tile at a time and stages nothing, and each
+# search streams the item tiles through the top-k kernel
+# (ops/pairwise_streaming.py::streaming_exact_knn), reading the stored norms,
+# in exact f32 whatever knn_precision says; a model built from attributes
+# streams too. Rows a carried `item_valid` marks dead are left out of the
+# stream by a host gather, as in the JAX package.
 #
 # Not ported: ApproximateNearestNeighbors (IVF-Flat, IVF-PQ, CAGRA), the
-# streamed scan, the incremental tier (add_items / delete_items /
+# streamed ring under a process group (a distributed model keeps its in-core
+# routes whatever the size), the mesh variants of the JAX package's streamed
+# tier, the incremental tier (add_items / delete_items /
 # compact_items; a carried `item_valid` mask is honored), serving,
 # persistence (the estimator is not persistable, as in the reference; the
 # JAX package saves its model through the ANN index store, not ported, so
@@ -61,6 +70,7 @@ import numpy as np
 import pandas as pd
 import torch
 
+from .. import config as _config
 from ..core.backend_params import HasFeaturesCols, HasIDCol, _TorchClass
 from ..core.dataset import (
     _is_pandas_df,
@@ -71,7 +81,9 @@ from ..core.dataset import (
 )
 from ..core.estimator import _TorchEstimator, _TorchModel, stage
 from ..core.params import HasInputCol, Param, ParamMap, TypeConverters
+from ..ops import ingest
 from ..ops.knn import center_norms_sq, exact_knn_distributed, exact_knn_ring, exact_knn_single
+from ..ops.pairwise_streaming import streaming_exact_knn, streaming_norms
 from ..ops.selection import resolve_fused_precision
 from ..ops.topk import narrow_rows
 from ..parallel.partition import PartitionDescriptor
@@ -137,16 +149,22 @@ class _NearestNeighborsClass(_TorchClass):
 
 
 def _check_fits(device: torch.device, nbytes: int) -> None:
-    """Raise when `nbytes` more would not fit the card's free memory: the port
-    searches in-core only."""
+    """Raise when `nbytes` more would not fit the card's free memory: the
+    in-core route's limit."""
     if device.type == "cuda":
         free, _ = torch.cuda.mem_get_info(device)
         if nbytes > free:
             raise MemoryError(
                 f"the kNN item set needs {nbytes / 2**30:.2f} GiB on {device}, "
-                f"{free / 2**30:.2f} GiB are free; the streamed (out-of-core) "
-                "kneighbors is not ported to the PyTorch backend yet (ROADMAP.md Next: the streamed plane)"
+                f"{free / 2**30:.2f} GiB are free for the in-core search"
             )
+
+
+def _streams(device: torch.device, nbytes: int, part: Partitioner) -> bool:
+    """Whether an item set of `nbytes` f32 bytes takes the out-of-core route:
+    above the stream threshold, in one process (module header)."""
+    threshold = _config.stream_threshold_bytes(device)
+    return not part.is_multiprocess and bool(threshold) and nbytes > threshold
 
 
 class NearestNeighbors(_NearestNeighborsClass, _TorchEstimator, _NNParams):
@@ -190,19 +208,25 @@ class NearestNeighbors(_NearestNeighborsClass, _TorchEstimator, _NNParams):
             raise RuntimeError("Fit input is empty.")
         items = fd.features.reshape(fd.n_rows, layout.n)
         dataset = self._ensureIdCol(dataset, layout.offset)
-        _check_fits(device, items.nbytes + 12 * fd.n_rows)
-        with span("stage"):
-            X = stage(items, device)
-        with span("norms"):  # Σ X², once: no search recomputes it
-            x2 = center_norms_sq(X)
+        streamed = _streams(device, items.nbytes, part)
+        if streamed:
+            with span("norms"):  # a tile at a time; the items stay on the host
+                x2 = streaming_norms(items, device)
+        else:
+            _check_fits(device, items.nbytes + 12 * fd.n_rows)
+            with span("stage"):
+                X = stage(items, device)
+            with span("norms"):  # Σ X², once: no search recomputes it
+                x2 = center_norms_sq(X)
         model = NearestNeighborsModel(
             item_features=items,
             item_ids=(fd.row_id if fd.row_id is not None
                       else np.arange(layout.offset, layout.offset + fd.n_rows, dtype=np.int64)),
-            item_norms_sq=x2.cpu().numpy(),
+            item_norms_sq=x2 if streamed else x2.cpu().numpy(),
             item_df=dataset,
         )
-        model._staged = (device, X, x2, None)
+        if not streamed:
+            model._staged = (device, X, x2, None)
         model._layout = layout if part.is_multiprocess else None
         self._copyValues(model)
         return model
@@ -305,6 +329,12 @@ class NearestNeighborsModel(_NearestNeighborsClass, _TorchModel, _NNParams):
                                np.shape(self._model_attributes["item_features"])[1])
         Qh = fd.features
         precision = resolve_fused_precision()
+        if layout is None and _streams(
+                device, 4 * np.size(self._model_attributes["item_features"]), part):
+            query_df = self._ensureIdCol(query_df)
+            ids, d2 = self._search_streamed(Qh, device)
+            query_ids = fd.row_id if fd.row_id is not None else np.arange(fd.n_rows, dtype=np.int64)
+            return query_df, query_ids, ids, np.sqrt(d2)
         X, x2, valid = self._items_on(device)
         with span("stage"):
             Q = stage(Qh, device)
@@ -353,6 +383,25 @@ class NearestNeighborsModel(_NearestNeighborsClass, _TorchModel, _NNParams):
         query_ids = (fd.row_id if fd.row_id is not None
                      else np.arange(q0, q0 + fd.n_rows, dtype=np.int64))
         return query_df, query_ids, ids, np.sqrt(d2)
+
+    def _search_streamed(self, Qh: np.ndarray, device: torch.device
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+        """(item ids, squared distances) of the out-of-core search: the
+        items stay on the host and stream a tile at a time, with their stored
+        norms (module header)."""
+        a = self._model_attributes
+        items = ensure_dtype(np.asarray(a["item_features"]))
+        item_ids = np.asarray(a["item_ids"])
+        x2 = a.get("item_norms_sq")
+        x2 = None if x2 is None else np.asarray(x2, np.float32)
+        if a.get("item_valid") is not None:
+            # the stream has no valid operand: a host gather of the live rows
+            live = np.asarray(a["item_valid"], bool)
+            items, item_ids = np.ascontiguousarray(items[live]), item_ids[live]
+            x2 = None if x2 is None else x2[live]
+        require_finite_rows(ingest.host_tensor(np.ascontiguousarray(Qh)), "kNN query")
+        d2, pos = streaming_exact_knn(Qh, items, self.getK(), device, norms=x2)
+        return np.where(pos >= 0, item_ids[np.maximum(pos, 0)], -1), d2
 
     def _ids_on(self, device: torch.device) -> torch.Tensor:
         """The shard's user ids on `device` (int64), staged once."""

@@ -21,9 +21,15 @@
 #     fromJSON, fromTreeliteJSON; ops/trees.py), which agree with the JAX
 #     package's on the same attributes and dumps.
 #
-# Not ported: the streamed (uint8) fit, fitMultiple, the classifier's evaluate
-# and serving. A param value the JAX package would hand to its sklearn
-# fallback raises here.
+#   * out-of-core: when the design matrix exceeds
+#     config.stream_threshold_bytes the fit keeps X on the host and bins it on
+#     the device batch by batch into resident uint8 bins
+#     (ops/trees.py::streaming_forest_fit, edges from a strided row sample),
+#     in one process and across the ranks of a group alike; maxBins above 256
+#     warns and fits in-core, as in the JAX package.
+#
+# Not ported: fitMultiple, the classifier's evaluate and serving. A param
+# value the JAX package would hand to its sklearn fallback raises here.
 #
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ import numpy as np
 import torch
 
 from ..core.backend_params import HasFeaturesCols, _TorchClass
-from ..core.estimator import FitInputs, _TorchEstimatorSupervised, _TorchModel
+from ..core.estimator import FitInputs, _TorchEstimatorSupervised, _TorchModel, stage
 from ..core.params import (
     HasFeaturesCol,
     HasLabelCol,
@@ -47,6 +53,7 @@ from ..core.params import (
     Param,
     TypeConverters,
 )
+from ..ops import ingest
 from ..ops.trees import (
     forest_fit,
     forest_from_json,
@@ -54,7 +61,9 @@ from ..ops.trees import (
     forest_to_json,
     predict_forest,
     resolve_feature_subset,
+    streaming_forest_fit,
 )
+from ..parallel.partitioner import resolve_batch_rows_per_process
 from ..utils import span
 
 
@@ -232,34 +241,58 @@ class _RandomForestEstimator(_RandomForestClass, _TorchEstimatorSupervised, _Ran
     def _impurity_name(self) -> str:
         raise NotImplementedError
 
-    def _get_torch_fit_func(self):
-        p = dict(self._torch_params)
-        is_cls = self._is_classification
+    def _forest_params(self, d: int) -> Dict[str, Any]:
+        """The keyword arguments of forest_fit / streaming_forest_fit, from the
+        backend params, at d features."""
+        p = self._torch_params
+        return dict(
+            n_trees=int(p["n_estimators"]),
+            max_depth=int(p["max_depth"]),
+            max_bins=int(p["n_bins"]),
+            impurity=self._impurity_name(),
+            feature_subset=resolve_feature_subset(str(p["max_features"]), d,
+                                                  self._is_classification),
+            min_instances=int(p["min_samples_leaf"]),
+            min_info_gain=float(p["min_impurity_decrease"]),
+            subsampling_rate=float(p["max_samples"]),
+            bootstrap=bool(p["bootstrap"]),
+            seed=int(p["random_state"]) if p["random_state"] is not None else 0,
+        )
 
+    def _get_torch_fit_func(self):
         def _fit(inputs: FitInputs):
             stats, n_classes = self._row_stats(inputs)
-            attrs = forest_fit(
-                inputs.features,
-                stats,
-                n_trees=int(p["n_estimators"]),
-                max_depth=int(p["max_depth"]),
-                max_bins=int(p["n_bins"]),
-                impurity=self._impurity_name(),
-                feature_subset=resolve_feature_subset(
-                    str(p["max_features"]), inputs.features.shape[1], is_cls
-                ),
-                min_instances=int(p["min_samples_leaf"]),
-                min_info_gain=float(p["min_impurity_decrease"]),
-                subsampling_rate=float(p["max_samples"]),
-                bootstrap=bool(p["bootstrap"]),
-                seed=int(p["random_state"]) if p["random_state"] is not None else 0,
-                part=inputs.partitioner,
-                layout=inputs.desc,
-            )
+            attrs = forest_fit(inputs.features, stats, part=inputs.partitioner, layout=inputs.desc,
+                               **self._forest_params(inputs.features.shape[1]))
             attrs["num_classes"] = n_classes
             return attrs
 
         return _fit
+
+    def _streaming_fit(self, fd, device: torch.device, desc, part) -> Dict[str, Any]:
+        """Out-of-core fit (module header), taken by core/estimator.py when the
+        design matrix exceeds the stream threshold: only the label and the
+        weights are staged whole, X goes through binning in batches."""
+        if int(self._torch_params["n_bins"]) > 256:
+            self.logger.warning(
+                "streamed RandomForest bins to uint8 (maxBins <= 256); fitting in-core "
+                "despite stream_threshold_bytes.")
+            return self._get_torch_fit_func()(self._build_fit_inputs(fd, device, desc, part))
+        dtype = np.float32 if self._float32_inputs else np.float64
+        w = np.ones((fd.n_rows,), dtype) if fd.weight is None else fd.weight.astype(dtype)
+        with span("stage"):
+            ring = ingest.PinnedRing(device) if device.type == "cuda" else None
+            label = stage(np.asarray(fd.label, dtype), device, ring)
+            row_weight = stage(w, device, ring)
+        inputs = FitInputs(features=None, row_weight=row_weight, desc=desc, device=device,
+                           unit_weight=fd.weight is None, label=label, partitioner=part)
+        stats, n_classes = self._row_stats(inputs)
+        del inputs, label, row_weight
+        attrs = streaming_forest_fit(
+            fd.features, stats, batch_rows=resolve_batch_rows_per_process(part), device=device,
+            part=part, layout=desc, **self._forest_params(desc.n))
+        attrs["num_classes"] = n_classes
+        return attrs
 
 
 class RandomForestRegressor(_RandomForestEstimator):

@@ -3,7 +3,9 @@
 # JAX package's ops/device_cache.py). Pass 1 of a multi-pass streamed fit
 # (KMeans: one pass per Lloyd iteration) keeps the device batches that
 # ops/streaming.py::_batch_stream uploaded; later passes replay them without
-# touching the host. The contract is the JAX package's:
+# touching the host. The pairwise tier's sweeps (ops/pairwise_streaming.py:
+# a kNN search's query blocks, DBSCAN's core mask and rounds) replay their
+# item tiles the same way. The contract is the JAX package's:
 #
 #   * whole-batch granularity: a batch is cached as the exact Batch the stream
 #     yielded, so a replayed pass runs the same kernels on the same tensors and

@@ -49,8 +49,10 @@
 #         one, in every form.
 # A pair's d2 from the kernel does not depend on the item range it is scanned
 # in, so in f32 both routes return the single-process search's distances and
-# ids bit for bit. Not ported: the approx_max_k selection strategy
-# (knn.selection=approx), the streamed scan, and the IVF / CAGRA indexes.
+# ids bit for bit. The ring's running merge, `merge_by_position`, is also the
+# streamed scan's (ops/pairwise_streaming.py, an item tile a step). Not
+# ported: the approx_max_k selection strategy (knn.selection=approx) and the
+# IVF / CAGRA indexes.
 #
 
 from __future__ import annotations
@@ -259,10 +261,22 @@ def exact_knn_ring(
             with span("merge"):
                 idx = idx.long()
                 pos = torch.where(idx < rows[owner], ring.starts[owner] + idx, -1)
-                pool_pos = torch.cat([best_pos, pos], dim=1)
-                pool_ids = torch.cat([best_ids, uc[idx]], dim=1)
-                best_d2, sel = select_topk_by_id(torch.cat([best_d2, hop_d2], dim=1),
-                                                 pool_pos, k_eff)
-                best_pos = torch.gather(pool_pos, 1, sel)
-                best_ids = torch.gather(pool_ids, 1, sel)
+                best_d2, best_pos, best_ids = merge_by_position(
+                    best_d2, best_pos, hop_d2, pos, k_eff, (best_ids, uc[idx]))
     return best_d2, best_ids
+
+
+def merge_by_position(
+    best_d2: torch.Tensor, best_pos: torch.Tensor, d2: torch.Tensor, pos: torch.Tensor, k: int,
+    *carried: Tuple[torch.Tensor, torch.Tensor],
+) -> Tuple[torch.Tensor, ...]:
+    """Fold candidates (d2, int64 global positions `pos`, -1 for none) into
+    a running top-k (best_d2, best_pos): the exact smallest k of the pool,
+    ties to the lower global position whatever the pool order
+    (select_topk_by_id). `carried` are (running, new) pairs of tensors
+    aligned with the two (the ring's item ids), gathered alike. Returns
+    (d2, positions, *carried) of the new running top-k."""
+    pool_pos = torch.cat([best_pos, pos], dim=1)
+    best_d2, sel = select_topk_by_id(torch.cat([best_d2, d2], dim=1), pool_pos, k)
+    return (best_d2, torch.gather(pool_pos, 1, sel),
+            *(torch.gather(torch.cat([run, new], dim=1), 1, sel) for run, new in carried))

@@ -61,7 +61,14 @@
 # (forest_from_treelite_json) are the JAX package's, in numpy, copied here: the
 # same attributes give the same dump, and the same dump the same arrays.
 #
-# Not ported: the streamed (uint8) fit.
+# Out-of-core (`streaming_forest_fit`, the JAX package's streaming_forest_fit):
+# X stays on the host and goes through the device in batches, each binned
+# there into one resident uint8 (n, d) matrix (a quarter of X's f32 bytes);
+# the edges come from a strided row sample, every max(1, n // 200,000)-th
+# global row (each rank's part gathered in rank order under a group), through
+# the same quantile_bin_edges. The trees then grow by `grow_forest`, the code
+# the in-core forest_fit grows with, so the two fits differ only in their
+# edges and in how the bins were made. Needs maxBins <= 256.
 #
 
 from __future__ import annotations
@@ -73,6 +80,7 @@ import numpy as np
 import torch
 
 from ..utils import span
+from . import ingest
 
 if TYPE_CHECKING:
     from ..parallel.partition import PartitionDescriptor
@@ -81,6 +89,8 @@ from .histogram import node_bin_histogram
 from .selection import top_k_max
 
 BIN_CHUNK_ELEMS = 1 << 28  # elements of X transposed at a time by bin_features
+ROUTE_ROWS = 1 << 22  # rows a level routes at a time
+EDGE_SAMPLE_ROWS = 200_000  # the streamed fit's edges: about this many strided rows
 
 
 # ---------------------------------------------------------------------------
@@ -268,11 +278,16 @@ def _level_step(
         T = torch.stack([Lbest, T - Lbest], dim=1).reshape(2 * width, s)
 
     with span("route"):
-        # leaf rows stay in the left child slot (unreachable at predict)
-        node = node_id.long()
-        picked = torch.gather(Xb, 1, best_feat[node][:, None].to(torch.int64))[:, 0]
-        go_right = (picked > best_bin[node]) & ~is_leaf_t[node]
-        node_id = node_id * 2 + go_right.to(torch.int32)
+        # leaf rows stay in the left child slot (unreachable at predict); rows
+        # go ROUTE_ROWS at a time, which bounds the int64 temporaries
+        routed = torch.empty_like(node_id)
+        for r0 in range(0, node_id.shape[0], ROUTE_ROWS):
+            rows = slice(r0, r0 + ROUTE_ROWS)
+            node = node_id[rows].long()
+            picked = torch.gather(Xb[rows], 1, best_feat[node][:, None].to(torch.int64))[:, 0]
+            go_right = (picked > best_bin[node]) & ~is_leaf_t[node]
+            routed[rows] = node_id[rows] * 2 + go_right.to(torch.int32)
+        node_id = routed
     return [feat_arr, thr_arr, leaf_arr, val_arr, gain_arr, wgt_arr, node_id, T]
 
 
@@ -396,6 +411,13 @@ def resolve_feature_subset(strategy: str, d: int, is_classification: bool) -> in
     raise ValueError(f"Unsupported featureSubsetStrategy: {strategy}")
 
 
+def _check_forest(n_trees: int, max_depth: int) -> None:
+    if n_trees < 1:
+        raise ValueError(f"numTrees must be >= 1, got {n_trees}")
+    if max_depth < 0:
+        raise ValueError(f"maxDepth must be >= 0, got {max_depth}")
+
+
 def forest_fit(
     X: torch.Tensor,  # (n, d) features on the device the forest grows on
     raw_stats: torch.Tensor,  # (n, s) unweighted per-row stats (sample weight included)
@@ -412,22 +434,47 @@ def forest_fit(
     part: Optional["Partitioner"] = None,
     layout: Optional["PartitionDescriptor"] = None,
 ) -> Dict[str, np.ndarray]:
-    """Bin once, then grow the forest tree by tree; trees differ only in their
-    bootstrap weights and feature-subset draws. Returns host arrays stacked over
-    trees, and the bin edges. Under a process group `part`, X and raw_stats
-    are this rank's rows, global rows [layout.offset, + n) of layout.m, and
-    every rank returns the same forest (module header)."""
-    if n_trees < 1:
-        raise ValueError(f"numTrees must be >= 1, got {n_trees}")
-    if max_depth < 0:
-        raise ValueError(f"maxDepth must be >= 0, got {max_depth}")
-    n = X.shape[0]
-    total = n if layout is None else layout.m
-    lo = 0 if layout is None else layout.offset
+    """Bin once, then grow the forest tree by tree (grow_forest). Under a
+    process group `part`, X and raw_stats are this rank's rows, global rows
+    [layout.offset, + n) of layout.m, and every rank returns the same forest
+    (module header)."""
+    _check_forest(n_trees, max_depth)
     with span("bin"):
         edges = quantile_bin_edges(X, max_bins, seed=seed, part=part, layout=layout)
-        edges_t = torch.from_numpy(edges).to(X.device)
-        Xb = bin_features(X, edges_t)
+        Xb = bin_features(X, torch.from_numpy(edges).to(X.device))
+    return grow_forest(
+        Xb, raw_stats, edges, n_trees, max_depth, max_bins, impurity, feature_subset,
+        min_instances, min_info_gain, subsampling_rate, bootstrap, seed, part, layout,
+    )
+
+
+def grow_forest(
+    Xb: torch.Tensor,  # (n, d) uint8 or int32 bins on the device the forest grows on
+    raw_stats: torch.Tensor,  # (n, s) unweighted per-row stats (sample weight included)
+    edges: np.ndarray,  # (d, max_bins-1) f32 bin edges on the host
+    n_trees: int,
+    max_depth: int,
+    max_bins: int,
+    impurity: str,
+    feature_subset: int,
+    min_instances: int,
+    min_info_gain: float,
+    subsampling_rate: float,
+    bootstrap: bool,
+    seed: int,
+    part: Optional["Partitioner"] = None,
+    layout: Optional["PartitionDescriptor"] = None,
+) -> Dict[str, np.ndarray]:
+    """The growth loop over rows already binned, shared by the in-core
+    forest_fit and the streamed streaming_forest_fit (the JAX package's
+    `_grow_forest`): trees differ only in their bootstrap weights and
+    feature-subset draws. Returns host arrays stacked over trees, and the bin
+    edges. Under a process group Xb and raw_stats are this rank's rows,
+    global rows [layout.offset, + n) of layout.m (module header)."""
+    n = Xb.shape[0]
+    total = n if layout is None else layout.m
+    lo = 0 if layout is None else layout.offset
+    edges_t = torch.from_numpy(edges).to(Xb.device)
     rng = np.random.default_rng(seed & 0x7FFFFFFF)
     trees: List[Dict[str, np.ndarray]] = []
     for i in range(n_trees):
@@ -440,8 +487,8 @@ def forest_fit(
             else:
                 w_tree = np.ones((total,), np.float32)
             w_tree = w_tree[lo : lo + n]
-            values = raw_stats * torch.from_numpy(w_tree).to(X.device)[:, None]
-        gen = torch.Generator(device=X.device)
+            values = raw_stats * torch.from_numpy(w_tree).to(Xb.device)[:, None]
+        gen = torch.Generator(device=Xb.device)
         gen.manual_seed((seed + 7919 * i) & 0x7FFFFFFF)
         tree = build_tree(
             Xb, values, edges_t, gen, max_depth=max_depth, nbins=max_bins,
@@ -454,6 +501,75 @@ def forest_fit(
     out = {k: np.stack([t[k] for t in trees]) for k in trees[0]}
     out["bin_edges"] = edges
     return out
+
+
+def strided_sample(X: np.ndarray, part: Optional["Partitioner"] = None,
+                   layout: Optional["PartitionDescriptor"] = None) -> torch.Tensor:
+    """The streamed fit's edge sample, a CPU f32 tensor: the rows X[::step]
+    of the global rows, step = max(1, n // EDGE_SAMPLE_ROWS) (rows are not
+    assumed shuffled). Under a process group X is this rank's rows, global
+    rows [layout.offset, + its rows) of layout.m; each rank takes the sampled
+    rows it owns, and one all-gather joins them in rank order on every rank
+    (a collective call)."""
+    total = X.shape[0] if layout is None else layout.m
+    step = max(1, total // EDGE_SAMPLE_ROWS)
+
+    def first(start: int) -> int:  # a rank's first sampled row, local
+        return (-start) % step
+
+    off = 0 if layout is None else layout.offset
+    mine = ingest.host_tensor(np.ascontiguousarray(X[first(off) :: step], dtype=np.float32))
+    if part is None or not part.is_multiprocess:
+        return mine
+    starts = np.cumsum([0] + [r for _, r in layout.parts_rank_size])
+    sizes = [len(range(first(int(a)), int(b - a), step)) for a, b in zip(starts[:-1], starts[1:])]
+    return part.all_gather_rows(mine.reshape(-1, layout.n), sizes)
+
+
+def streaming_forest_fit(
+    X: np.ndarray,  # (n, d) host features; they never lie whole on the device
+    raw_stats: torch.Tensor,  # (n, s) unweighted per-row stats on `device`
+    n_trees: int,
+    max_depth: int,
+    max_bins: int,
+    impurity: str,
+    feature_subset: int,
+    min_instances: int,
+    min_info_gain: float,
+    subsampling_rate: float,
+    bootstrap: bool,
+    seed: int,
+    batch_rows: int,
+    device: torch.device,
+    part: Optional["Partitioner"] = None,
+    layout: Optional["PartitionDescriptor"] = None,
+) -> Dict[str, np.ndarray]:
+    """The out-of-core forest fit (the JAX package's streaming_forest_fit):
+    the edges of the strided sample (strided_sample) through
+    quantile_bin_edges, whose own 200,000-row draw applies to that sample;
+    X streamed through the device in batches of `batch_rows` rows
+    (ops/streaming.py), each binned there into one resident uint8 (n, d)
+    matrix; then grow_forest, the in-core fit's growth. Resident on the
+    device: the bins, the stats and the batches in flight. Under a process
+    group, as forest_fit."""
+    from .streaming import _Stream
+
+    _check_forest(n_trees, max_depth)
+    if max_bins > 256:
+        raise ValueError(f"the streamed forest bins to uint8: maxBins must be <= 256, got {max_bins}")
+    n, d = X.shape
+    with span("bin"):
+        edges = quantile_bin_edges(strided_sample(X, part, layout), max_bins, seed=seed)
+        edges_t = torch.from_numpy(edges).to(device)
+        Xb = torch.empty((n, d), dtype=torch.uint8, device=device)
+        s = 0
+        for batch in _Stream(X, None, None, batch_rows, device, np.float32, "forest").batches(None):
+            Xb[s : s + batch.rows] = bin_features(batch.X[: batch.rows], edges_t)
+            s += batch.rows
+    return grow_forest(
+        Xb, raw_stats, edges, n_trees, max_depth, max_bins, impurity, feature_subset,
+        min_instances, min_info_gain, subsampling_rate, bootstrap, seed, part, layout,
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,9 @@
 """One rank of a multi-process job of the PyTorch port on the CPU (gloo), run
 by tests/test_torch_multiprocess.py and
 tests/test_torch_multiprocess_knn_forest.py and
-tests/test_torch_multiprocess_dbscan.py:
+tests/test_torch_multiprocess_dbscan.py and tests/test_torch_forest_streaming.py:
 
-    python tests/_torch_mp_worker.py <rank> <world> <port> <workdir> [fits | knn_forest | dbscan]
+    python tests/_torch_mp_worker.py <rank> <world> <port> <workdir> [fits | knn_forest | dbscan | forest_streaming]
 
 It joins the group through the SRML_TPU_* environment and takes rows
 [cuts[rank], cuts[rank + 1]) of each data set in <workdir>/data.npz (its
@@ -17,7 +17,10 @@ searches it (`knn_searches()`, both routes, every form) and fits the forests
 raised and the collectives it made. The "dbscan" job (`dbscan_main`)
 transforms every case of `dbscan_cases()` and records the labels, the
 eps-counts summed over the ring's hops, the propagation rounds and the
-collectives, and what each case of `dbscan_errors()` raised."""
+collectives, and what each case of `dbscan_errors()` raised. The
+"forest_streaming" job (`forest_streaming_main`) fits every case of
+`streamed_forest_cases()` out-of-core (stream_threshold_bytes 1) and records
+the model attributes and the collectives."""
 
 import datetime
 import os
@@ -80,8 +83,9 @@ def main(rank: int, world: int, port: int, workdir: str, job: str = "fits") -> N
     if not bootstrap.init_from_env(timeout=datetime.timedelta(seconds=120)):
         raise RuntimeError("no multi-process group")
     part = partitioner.active_partitioner()
-    if job in ("knn_forest", "dbscan"):
-        run = knn_forest_main if job == "knn_forest" else dbscan_main
+    if job in ("knn_forest", "dbscan", "forest_streaming"):
+        run = {"knn_forest": knn_forest_main, "dbscan": dbscan_main,
+               "forest_streaming": forest_streaming_main}[job]
         results = run(rank, dict(np.load(os.path.join(workdir, "data.npz"))))
         results.update(process_index=part.process_index, process_count=part.process_count)
         with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
@@ -374,6 +378,55 @@ def dbscan_main(rank, sets):
     return results
 
 
+
+# ------------------------------------------------------------ streamed forests
+
+# trees, depth and seed of the streamed forest cases; the batch rows of the
+# whole group (each rank streams its share, resolve_batch_rows_per_process)
+FS_TREES, FS_DEPTH, FS_SEED, FS_BATCH_ROWS = 3, 4, 5, 1000
+
+
+def streamed_forest_cases():
+    """case -> (estimator kind, data set, label, params): the streamed fits of
+    the forest_streaming job; every case replays the JAX package's scores.
+    "strided": more than 2 x 200,000 rows, so the edge sample takes every
+    second global row and the ranks' first sampled rows differ."""
+    base = dict(numTrees=FS_TREES, maxDepth=FS_DEPTH, seed=FS_SEED)
+    return {
+        "gini_2": ("classifier", "fs", "y2", dict(base, maxBins=16)),
+        "entropy_3": ("classifier", "fs", "y3", dict(base, impurity="entropy")),
+        "variance_integer": ("regressor", "fs", "yint", dict(base, maxBins=8)),
+        "strided": ("classifier", "fsbig", "y2",
+                    dict(numTrees=1, maxDepth=2, maxBins=16, seed=FS_SEED)),
+    }
+
+
+def forest_streaming_main(rank, sets):
+    from spark_rapids_ml_torch import config
+    from spark_rapids_ml_torch.ops import trees
+    from spark_rapids_ml_torch.parallel import partitioner
+
+    results = {"forest": {}}
+    real_scores = trees._feature_scores
+    config.set("stream_threshold_bytes", 1)
+    config.set("stream_batch_rows", FS_BATCH_ROWS)
+    for case, (kind, name, label, params) in streamed_forest_cases().items():
+        lo, hi = int(sets[f"{name}_cuts"][rank]), int(sets[f"{name}_cuts"][rank + 1])
+        replay(trees, jax_score_list(sets[f"{name}_scores_{params['numTrees']}"],
+                                     params["numTrees"], params["maxDepth"],
+                                     sets[f"{name}_X"].shape[1]))
+        frame = pd.DataFrame({"features": list(sets[f"{name}_X"][lo:hi]),
+                              "label": sets[f"{name}_{label}"][lo:hi],
+                              "w": sets[f"{name}_w"][lo:hi]})
+        partitioner.reset_counters()
+        model = forest_estimator(kind, params).fit(frame)
+        results["forest"][case] = {"attrs": model.get_model_attributes(),
+                                   "comm": dict(partitioner.counters)}
+    trees._feature_scores = real_scores
+    return results
+
+
 if __name__ == "__main__":
     main(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
          *(sys.argv[5:6] or ["fits"]))
+
