@@ -25,10 +25,13 @@ non-zero exit code; nothing is caught):
    cases (TOPK_HARD: items in descending distance order, all-duplicate items,
    k 1 / 200 / K_MAX, nq around the 64-query tile, n off the 128-item tile and
    n < k, d off the mma depth of 8, masked tails). The top-k kernel's bfloat16
-   and int8 forms are held to their plain versions at the same shapes and
-   TOPK_HARD (TOPK_INT8_RTOL, topk_narrow_rtol), and at both kNN traffics of
-   the main shape, with the re-rank invariant (the returned neighbours are
-   parity_rerank_sq of their ids, bit for bit). Non-finite inputs: count and
+   and int8 forms (csrc/topk_narrow.cu) are held to their plain versions at
+   the same shapes, at the narrow scan's edges (NARROW_EDGE_D x
+   NARROW_EDGE_SHAPES: every launch plan, resident and streamed queries, one
+   and two consumer warpgroups, whole tiles in the ring or not) and TOPK_HARD (TOPK_INT8_RTOL,
+   topk_narrow_rtol), and at both kNN traffics of the main shape, with the
+   re-rank invariant (the returned neighbours are parity_rerank_sq of their
+   ids, bit for bit). Non-finite inputs: count and
    the three top-k forms with NaN query and item rows against their plain
    versions, assign and Lloyd with NaN rows (center 0). The IVF probe kernel
    (csrc/probe.cu, phase_small_probe) at PROBE_SMALL (nq and nlist around its
@@ -288,8 +291,10 @@ non-zero exit code; nothing is caught):
    calls that compute the same function where there are some, at the main
    paths' shapes (topk at both kNN traffics with the items' cached norms, as
    kneighbors calls it, and with its item ranges pinned to one against the
-   wrapper's rule; its narrow forms at their pool widths, with the exact
-   re-rank beside them and a bf16 cuBLAS library figure); each kernel's
+   wrapper's rule; its narrow forms at their pool widths, with their
+   products alone (the epilogue skipped), their launch plan, the exact
+   re-rank beside them and a bf16 cuBLAS library figure, narrow_times); each
+   kernel's
    bound from the card's
    published peaks (f32 on the CUDA cores, and for the 3xTF32 kernels, xtx,
    xtxy and topk, also three TF32 operations per f32 operation on the tensor
@@ -331,6 +336,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -469,8 +475,8 @@ SOURCE = {
     "xtxy": "spark_rapids_ml_torch/csrc/xtx.cu",
     "count": "spark_rapids_ml_torch/csrc/count.cu",
     "topk": "spark_rapids_ml_torch/csrc/topk.cu",
-    "topk_bf16": "spark_rapids_ml_torch/csrc/topk.cu",
-    "topk_int8": "spark_rapids_ml_torch/csrc/topk.cu",
+    "topk_bf16": "spark_rapids_ml_torch/csrc/topk_narrow.cu",
+    "topk_int8": "spark_rapids_ml_torch/csrc/topk_narrow.cu",
     "node_bin_hist": "spark_rapids_ml_torch/csrc/hist.cu",
     "segment_hist": "spark_rapids_ml_torch/csrc/hist.cu",
     "lloyd_bf16": "spark_rapids_ml_torch/csrc/lloyd.cu",
@@ -499,8 +505,8 @@ def log(*args) -> None:
 
 def ptxas_lines(report: str) -> list:
     """ptxas -v's lines naming each kernel, its registers and shared memory,
-    and its stack and spills."""
-    keys = ("entry function", "registers", "spill")
+    its stack and spills, and its warnings (a serialized wgmma among them)."""
+    keys = ("entry function", "registers", "spill", "warning", "wgmma")
     return [line.strip() for line in report.splitlines() if any(k in line for k in keys)]
 
 
@@ -1184,15 +1190,29 @@ def check_rerank(Q, X, valid, k: int, precision: str, label: str, items=None):
     return d2, ids
 
 
+# The narrow scan's edges (csrc/topk_narrow.cu, ops/topk.py::narrow_plan):
+# padded widths of one chunk, a chunk and a bit, wider than the ring (a stage
+# released a chunk at a time, by one or two warpgroups) and past the resident
+# query tile (streamed queries at every pool); nq off both query blocks (64,
+# 128); n below the pool; pools 9, 18, 250 and 256 (two warpgroups at 9 and 18
+# while their queries stay resident, one above).
+NARROW_EDGE_D = (1, 7, 24, 256, 257, 500, 1000, 1500)
+NARROW_EDGE_SHAPES = ((130, 9_001, 9), (129, 20_011, 18), (65, 7_777, 250), (33, 200, 256))
+
+
 def phase_small_narrow(torch) -> None:
-    """The top-k kernel's bfloat16 and int8 forms against their plain versions
-    at the f32 form's small ragged shapes and TOPK_HARD, and the re-rank
-    invariant through exact_knn_single."""
+    """The top-k kernel's bfloat16 and int8 forms (csrc/topk_narrow.cu)
+    against their plain versions at the f32 form's small ragged shapes, at
+    the narrow scan's edges (NARROW_EDGE_D x NARROW_EDGE_SHAPES, a masked
+    fifth of the items: every plan, (consumers, resident queries, a whole
+    tile in the ring)) and TOPK_HARD, and the re-rank invariant through
+    exact_knn_single."""
     from spark_rapids_ml_torch.ops import topk as topk_mod
     from spark_rapids_ml_torch.ops.topk import fused_topk
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for precision in KNN_FORMS:
-        cases = 0
+        cases, plans = 0, set()
         for nq, n in ((77, 5_003), (100, 50_003)):
             for d in (13, 32, 200):
                 Q, X, valid, _ = topk_case(torch, nq, n, d, SEED + d + n, 0.2)
@@ -1203,6 +1223,20 @@ def phase_small_narrow(torch) -> None:
                     cases += 1
                 for k in (1, 10, 200, 205):  # pools of 9, 18, 250 and 256
                     check_rerank(Q, X, valid, k, precision, f"nq={nq} n={n} d={d} k={k}", items)
+        for d in NARROW_EDGE_D:
+            for nq, n, kc in NARROW_EDGE_SHAPES:
+                Q, X, valid, _ = topk_case(torch, nq, n, d, SEED + 300 + d + n, 0.2)
+                items = topk_mod.narrow_rows(X, precision)
+                plan = topk_mod.narrow_plan(nq, n, items.rows.shape[1], precision, min(kc, n), sms)
+                plans.add((plan.consumers, plan.resident, plan.stages >= plan.chunks))
+                check_topk_narrow(Q, X, valid, kc, precision,
+                                  f"nq={nq} n={n} d={d} pool {kc} ({plan.consumers} warpgroups, "
+                                  f"{'resident' if plan.resident else 'streamed'} queries, "
+                                  f"{plan.stages} stages)", items)
+                cases += 1
+        require(plans == {(2, True, True), (2, True, False), (1, True, True), (1, True, False),
+                          (1, False, False)},
+                f"topk {precision}: the edge cases took the plans {sorted(plans)}")
         Q, X, valid, _ = topk_case(torch, 100, 50_003, 13, SEED + 5, 0.2)
         one = pinned_splits(topk_mod, 1, lambda: fused_topk(Q, X, valid, 200, precision=precision))
         for splits in (2, 7, 64):
@@ -1219,8 +1253,9 @@ def phase_small_narrow(torch) -> None:
                 order = torch.cat([valid.nonzero()[:, 0], (~valid).nonzero()[:, 0]])
                 require(bool((ik == order[: min(k, n)].to(ik.dtype)[None, :]).all()),
                         f"topk {precision} {label}: ties not lowest id first")
-        log(f"  topk {precision}: {cases} pools held to plain, 24 re-ranks bit-equal to "
-            f"parity_rerank_sq of their ids, 2 / 7 / 64 item ranges equal to one")
+        log(f"  topk {precision}: {cases} pools held to plain (the plans {sorted(plans)}), 24 "
+            f"re-ranks bit-equal to parity_rerank_sq of their ids, 2 / 7 / 64 item ranges "
+            f"equal to one")
 
 
 def phase_small_nonfinite(torch) -> None:
@@ -3755,6 +3790,134 @@ def probe_main() -> int:
     return 0
 
 
+def narrow_times(torch, X, valid_all, x2_main, traffics, narrow_items, errs=None,
+                 launches=None) -> list:
+    """Phase 4's rows 6b and 6c: each narrow form at each traffic ((queries,
+    k, repetitions)) at its pool width, the kernel (csrc/topk_narrow.cu) and
+    its products alone (ops/topk.py::_narrow_scan's products_only variant,
+    the epilogue skipped, uncounted), the plain version, the bf16 library
+    figure, the bound, the exact re-rank to k beside them, and the launch
+    plan. Returns the JSON rows of the first traffic's forms when errs and
+    launches are given."""
+    from spark_rapids_ml_torch.ops import knn as knn_ops
+    from spark_rapids_ml_torch.ops import topk as topk_mod
+
+    n, d = X.shape
+    rows = []
+
+    def library_bf16(Q, kk):
+        """cuBLAS bf16 addmm (x2 - 2 Q_blk X^T in bf16, KNN_LIB_BLOCK queries
+        at a time) and torch.topk of each block, then + q2 on the kc kept."""
+        q2 = torch.sum(Q * Q, dim=1)
+        Qb = Q.to(torch.bfloat16)
+        for s in range(0, Q.shape[0], KNN_LIB_BLOCK):
+            dd = torch.addmm(x2_bf16[None, :], Qb[s : s + KNN_LIB_BLOCK], X_bf16.T, alpha=-2.0)
+            v = torch.topk(dd, kk, dim=1, largest=False).values
+            del dd
+            (v.float() + q2[s : s + KNN_LIB_BLOCK, None]).clamp_min_(0.0)
+
+    def rerank_stage(Q, kc, k, precision):
+        _, idx = topk_mod.fused_topk(Q, X, valid_all, kc, x2=x2_main, precision=precision,
+                                     items=narrow_items[precision])
+        return lambda: (
+            knn_ops.parity_rerank_sq(Q, X, valid_all,
+                                     knn_ops.parity_rerank_sq(Q, X, valid_all, idx, k)[1], k)
+            if kc != k else knn_ops.parity_rerank_sq(Q, X, valid_all, idx, k))
+
+    X_bf16 = narrow_items["bfloat16"].rows
+    x2_bf16 = x2_main.to(torch.bfloat16)
+    sms = torch.cuda.get_device_properties(X.device).multi_processor_count
+    for precision in KNN_FORMS:
+        name = "topk_" + ("bf16" if precision == "bfloat16" else "int8")
+        items = narrow_items[precision]
+        esize = items.rows.element_size()
+        dp = items.rows.shape[1]
+        for Q_t, k, reps in traffics:
+            nq_t = Q_t.shape[0]
+            kc = topk_mod.oversample_width(k, n, precision)
+            plan = topk_mod.narrow_plan(nq_t, n, dp, precision, kc, sms)
+            kern = lambda: topk_mod.fused_topk(Q_t, X, valid_all, kc, x2=x2_main,
+                                               precision=precision, items=items)
+            ms = time_ms(torch, kern, reps, 1)
+            prod_ms = time_ms(torch, lambda: topk_mod._narrow_scan(
+                Q_t, X, valid_all, kc, x2_main, precision, items, products_only=True), reps, 1)
+            plain_ms = time_ms(torch, lambda: topk_mod.topk_plain(
+                Q_t, X, valid_all, kc, x2=x2_main, precision=precision, items=items),
+                *((3, 1) if nq_t <= NQ_KNN else (2, 0)))
+            lib_ms = time_ms(torch, lambda: library_bf16(Q_t, kc), 3, 1)
+            rr_ms = time_ms(torch, rerank_stage(Q_t, kc, k, precision), reps, 1)
+            # items in the form's type with their norms (and int8 scales) and
+            # the mask, the queries likewise, the pool written; the products at
+            # the form's dense peak on the tensor cores and the f32 epilogue (4
+            # operations a pair) on the CUDA cores, which run at once
+            nbytes = (esize * (n + nq_t) * dp + 4.0 * (n + nq_t)
+                      * (2 if precision == "int8" else 1) + n + 8.0 * nq_t * kc)
+            t_ops = max(2.0 * nq_t * n * d / PEAK_NARROW_OPS[precision],
+                        4.0 * nq_t * n / PEAK_F32_FLOPS)
+            t_bytes = nbytes / PEAK_BYTES
+            b_ms, b_by = 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+            log(f"  {name} at {nq_t} queries, pool {kc} (k={k}): kernel {ms:.4f} ms  products "
+                f"alone {prod_ms:.4f} ms  plain {plain_ms:.4f} ms  library (bf16 addmm + topk) "
+                f"{lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}); the exact re-rank to k "
+                f"{rr_ms:.4f} ms; plan: {plan.consumers} consumer warpgroup(s), queries "
+                f"{'resident' if plan.resident else 'streamed'}, {plan.stages} stages of "
+                f"{plan.chunks} a tile, {plan.smem} bytes, {plan.n_splits} item ranges")
+            if errs is not None and k == traffics[0][1]:
+                rows.append({
+                    "name": name, "route": "cuda", "source": SOURCE[name],
+                    "replaces": REPLACES[name], "launches": launches[name],
+                    "max_abs_err": errs[name]["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                })
+    return rows
+
+
+def narrow_main() -> int:
+    """The narrow top-k forms alone (a few minutes of command time): the
+    build and ptxas report of csrc/topk_narrow.cu, phase 2a's narrow cases
+    (phase_small_narrow), and phase 4's rows 6b and 6c (narrow_times) on
+    8,388,608 x 256 blobs made on the card (SEED + 19) at both kNN traffics,
+    after holding each pool to plain there:
+    `python3 -c 'import chip_smoke; raise SystemExit(chip_smoke.narrow_main())'`."""
+    import torch
+
+    from spark_rapids_ml_torch.ops import _cuda
+    from spark_rapids_ml_torch.ops import topk as topk_mod
+
+    require(torch.cuda.is_available(), "the narrow top-k needs a CUDA card")
+    log(f"card: {nvidia_smi()}")
+    log(f"python {sys.version.split()[0]}  torch {torch.__version__}  cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    reports = _cuda.build(["topk", "topk_narrow"])
+    log(f"built topk.cu and topk_narrow.cu in {time.perf_counter() - t0:.1f} s")
+    for name, rep in reports.items():
+        for line in ptxas_lines(rep):
+            log(f"  ptxas {name}: {line}")
+    phase_small_narrow(torch)
+    g = torch.Generator("cuda").manual_seed(SEED + 19)
+    centers = 4.0 * torch.randn((K_MAIN, D_MAIN), device="cuda", generator=g)
+    labels = torch.randint(0, K_MAIN, (N_MAIN,), device="cuda", generator=g)
+    X = centers[labels] + torch.randn((N_MAIN, D_MAIN), device="cuda", generator=g)
+    del labels
+    valid_all = torch.ones(N_MAIN, dtype=torch.bool, device="cuda")
+    x2 = torch.sum(X * X, dim=1)
+    Qk = X[:NQ_KNN].clone()
+    fresh = torch.randint(0, K_MAIN, (NQ_KNN10 - NQ_KNN10 // 2,), device="cuda", generator=g)
+    Qk10 = torch.cat([X[torch.randperm(N_MAIN, device="cuda", generator=g)[: NQ_KNN10 // 2]],
+                      centers[fresh] + torch.randn((len(fresh), D_MAIN), device="cuda",
+                                                   generator=g)])
+    items = {p: topk_mod.narrow_rows(X, p) for p in KNN_FORMS}
+    for precision in KNN_FORMS:
+        for Q_t, k in ((Qk, K_KNN), (Qk10, K_KNN10)):
+            kc = topk_mod.oversample_width(k, N_MAIN, precision)
+            check_topk_narrow(Q_t, X, valid_all, kc, precision,
+                              f"nq={Q_t.shape[0]} n={N_MAIN} d={D_MAIN} pool {kc} (k={k})",
+                              items[precision])
+    narrow_times(torch, X, valid_all, x2, ((Qk, K_KNN, 10), (Qk10, K_KNN10, 3)), items)
+    log("narrow top-k passed")
+    return 0
+
+
 # ------------------------------------------------ phase 3m: across processes
 
 MP_WORLD = 2
@@ -5592,64 +5755,10 @@ def main() -> int:
     log(f"  topk with the items' norms computed in the wrapper (as PRs 3-4 timed it): "
         f"{NQ_KNN} queries, k={K_KNN} {ms_norms:.4f} ms; {NQ_KNN10} queries, k={K_KNN10} "
         f"{ms10_norms:.4f} ms")
-    # the narrow forms: kernel, plain, the re-rank beside them, bf16 library
-    def topk_library_bf16(Q, kk):
-        """cuBLAS bf16 addmm (x2 - 2 Q_blk X^T in bf16, KNN_LIB_BLOCK queries
-        at a time) and torch.topk of each block, then + q2 on the kc kept."""
-        q2 = torch.sum(Q * Q, dim=1)
-        Qb = Q.to(torch.bfloat16)
-        for s in range(0, Q.shape[0], KNN_LIB_BLOCK):
-            d = torch.addmm(x2_bf16[None, :], Qb[s : s + KNN_LIB_BLOCK], X_bf16.T, alpha=-2.0)
-            v = torch.topk(d, kk, dim=1, largest=False).values
-            del d
-            (v.float() + q2[s : s + KNN_LIB_BLOCK, None]).clamp_min_(0.0)
-
-    def rerank_stage(Q, kc, k, precision):
-        _, idx = topk_mod.fused_topk(Q, X, valid_all, kc, x2=x2_main, precision=precision,
-                                     items=narrow_items[precision])
-        return lambda: (
-            knn_ops.parity_rerank_sq(Q, X, valid_all,
-                                     knn_ops.parity_rerank_sq(Q, X, valid_all, idx, k)[1], k)
-            if kc != k else knn_ops.parity_rerank_sq(Q, X, valid_all, idx, k))
-
-    X_bf16 = narrow_items["bfloat16"].rows
-    x2_bf16 = x2_main.to(torch.bfloat16)
-    for precision in KNN_FORMS:
-        name = "topk_" + ("bf16" if precision == "bfloat16" else "int8")
-        items = narrow_items[precision]
-        esize = items.rows.element_size()
-        dp = items.rows.shape[1]
-        for Q_t, k, reps in ((Qk, K_KNN, 10), (Qk10, K_KNN10, 3)):
-            nq_t = Q_t.shape[0]
-            kc = topk_mod.oversample_width(k, N_MAIN, precision)
-            kern = lambda: topk_mod.fused_topk(Q_t, X, valid_all, kc, x2=x2_main,
-                                               precision=precision, items=items)
-            ms = time_ms(torch, kern, reps, 1)
-            plain_ms = time_ms(torch, lambda: topk_mod.topk_plain(
-                Q_t, X, valid_all, kc, x2=x2_main, precision=precision, items=items),
-                *((3, 1) if k == K_KNN else (2, 0)))
-            lib_ms = time_ms(torch, lambda: topk_library_bf16(Q_t, kc), 3, 1)
-            rr_ms = time_ms(torch, rerank_stage(Q_t, kc, k, precision), reps, 1)
-            # items in the form's type with their norms (and int8 scales) and
-            # the mask, the queries likewise, the pool written; the products at
-            # the form's dense peak, the f32 epilogue (4 operations a pair)
-            nbytes = (esize * (N_MAIN + nq_t) * dp + 4.0 * (N_MAIN + nq_t)
-                      * (2 if precision == "int8" else 1) + N_MAIN + 8.0 * nq_t * kc)
-            t_ops = (2.0 * nq_t * N_MAIN * D_MAIN / PEAK_NARROW_OPS[precision]
-                     + 4.0 * nq_t * N_MAIN / PEAK_F32_FLOPS)
-            t_bytes = nbytes / PEAK_BYTES
-            b_ms, b_by = 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-            log(f"  {name} at {nq_t} queries, pool {kc} (k={k}): kernel {ms:.4f} ms  plain "
-                f"{plain_ms:.4f} ms  library (bf16 addmm + topk) {lib_ms:.4f} ms  bound "
-                f"{b_ms:.4f} ms ({b_by}); the exact re-rank to k {rr_ms:.4f} ms")
-            if k == K_KNN:
-                rows.append({
-                    "name": name, "route": "cuda", "source": SOURCE[name],
-                    "replaces": REPLACES[name], "launches": launches[name],
-                    "max_abs_err": errs[name]["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                })
-    del X_bf16, x2_bf16
+    # the narrow forms (rows 6b, 6c): kernel, products alone, plain, the
+    # re-rank beside them, the bf16 library figure, the bound
+    rows += narrow_times(torch, X, valid_all, x2_main, ((Qk, K_KNN, 10), (Qk10, K_KNN10, 3)),
+                         narrow_items, errs, launches)
     # the IVF coarse probe: fused_probe at phase 3i's k=10 queries against the
     # IVF-Flat index's centers
     rows.append({"name": "fused_probe", "route": "cuda", "source": SOURCE["fused_probe"],
@@ -5667,7 +5776,7 @@ def main() -> int:
             f"{topk_mod._splits(NQ_KNN10, N_MAIN, kk, sms)[0]}")
     log(f"  xtx/xtxy: {xtwx.SMEM_BYTES} bytes of dynamic shared memory a block, one block "
         f"per SM; {xtwx._chunks(N_MAIN, 3, sms)[1]} row chunks x 3 tiles at d = {D_MAIN}")
-    for name in ("xtx", "topk", "probe", "count", "lloyd", "assign"):
+    for name in ("xtx", "topk", "topk_narrow", "probe", "count", "lloyd", "assign"):
         for line in ptxas_lines(reports[name]):
             log(f"  ptxas {name}: {line}")
 

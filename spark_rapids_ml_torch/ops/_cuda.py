@@ -11,11 +11,12 @@
 #   lloyd.cu  srml_lloyd_step                (ops/lloyd.py)
 #   assign.cu srml_assign                    (ops/select.py)
 #   count.cu  srml_count                     (ops/count.py)
-#   topk.cu   srml_topk                      (ops/topk.py)
+#   topk.cu   srml_topk                      (ops/topk.py, float32)
+#   topk_narrow.cu srml_topk_narrow          (ops/topk.py, bfloat16 and int8)
 #   probe.cu  srml_probe                     (ops/topk.py::fused_probe)
 #   hist.cu   srml_node_bin_hist, srml_segment_hist  (ops/histogram.py)
 # Every source may include the headers beside it (nearest.cuh, tf32x3.cuh,
-# bf16split.cuh);
+# bf16split.cuh, topk_keys.cuh);
 # each library's hash covers them all.
 #
 # Every pointer and the stream cross as ctypes.c_void_p; each C entry point
@@ -37,7 +38,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent.parent / "build" / "torch_kernels"
-SOURCES = ("xtx", "lloyd", "assign", "count", "topk", "probe", "hist")
+SOURCES = ("xtx", "lloyd", "assign", "count", "topk", "topk_narrow", "probe", "hist")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -57,8 +58,10 @@ ENTRIES = {
     "assign": ("assign", "srml_assign",
                [_P, _L, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _L, _I, _L, _I, _P]),
     "count": ("count", "srml_count", [_P, _P, _L, _I, _P, _P, _I, _F, _P, _P]),
-    "topk": ("topk", "srml_topk",
-             [_P, _P, _L, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P]),
+    "topk": ("topk", "srml_topk", [_P, _P, _L, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
+    "topk_narrow": ("topk_narrow", "srml_topk_narrow",
+                    [_P, _P, _L, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P,
+                     _P, _P, _I, _P, _P]),
     "probe": ("probe", "srml_probe",
               [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]),
     "node_bin_hist": ("hist", "srml_node_bin_hist",

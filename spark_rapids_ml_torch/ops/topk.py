@@ -31,15 +31,20 @@
 # give the same ids, so the port's one route is a route, not a change of
 # result.
 #
-# `fused_topk` launches the CUDA kernel csrc/topk.cu for tensors on the card,
-# always (the JAX package's `knn.pallas_min_items` gate is a fact about the
-# TPU), and runs `topk_plain`, the same function in plain PyTorch, for tensors
-# on the CPU. The kernel takes its distance products in 3xTF32 on the tensor
-# cores, at f32 accuracy; its design and its bound on the H100 are in the
-# source's header. The TPU kernel's tile geometry (q_block, item_tile, the
-# VMEM budget) has no counterpart: the card's geometry is fixed in the source,
-# and the wrapper only splits the items into ranges (`_splits`) so that query
-# tiles x ranges fill whole waves of the card's resident blocks.
+# `fused_topk` launches a CUDA kernel for tensors on the card, always (the JAX
+# package's `knn.pallas_min_items` gate is a fact about the TPU), and runs
+# `topk_plain`, the same function in plain PyTorch, for tensors on the CPU.
+# The float32 form is csrc/topk.cu, its products in 3xTF32 on the tensor
+# cores, at f32 accuracy; the TPU kernel's tile geometry (q_block, item_tile,
+# the VMEM budget) has no counterpart: the card's geometry is fixed in the
+# source, and the wrapper only splits the items into ranges (`_splits`) so
+# that query tiles x ranges fill whole waves of the card's resident blocks.
+# The bfloat16 and int8 forms are csrc/topk_narrow.cu (a TMA ring of item
+# chunks, the query tile resident, wgmma in one or two consumer warpgroups);
+# `narrow_plan` sizes its launch from the pool width and the padded width:
+# consumer warpgroups, the resident or streamed query tile, the ring's depth,
+# and the item ranges by the same rule. Each source's header has its design
+# and its bound on the H100.
 #
 
 from __future__ import annotations
@@ -60,10 +65,16 @@ MAX_SPLITS = 512  # item ranges at most
 MIN_SPLIT_ITEMS = 4096  # a range scans at least this many items
 MAX_WAVES = 16  # past this many waves the rule stops splitting for whole waves
 SMEM_BLOCK = 232_448  # H100: shared memory one block can use
-MODES = {"float32": 0, "bfloat16": 1, "int8": 2}  # csrc/topk.cu MODE_*
+# the forms of the products; the narrow ones' codes are csrc/topk_narrow.cu FORM_*
+MODES = {"float32": 0, "bfloat16": 1, "int8": 2}
 # columns at which an int8 row's int32 sum of 127 * 127 products cannot overflow
 INT8_D_MAX = (2**31 - 1) // (127 * 127)
 QUANT_ROWS = 1 << 20  # rows converted at a time by narrow_rows
+# csrc/topk_narrow.cu's geometry (narrow_smem_bytes)
+NARROW_Q_TILE = 64  # QW: queries of a consumer warpgroup
+NARROW_CHUNK_BYTES = 128  # CHUNK_BYTES: bytes of a row a ring stage holds
+NARROW_BUFFER_KEYS = 32  # BCAP: candidate keys buffered a query
+NARROW_MIN_STAGES = 2  # the ring's least depth
 # Pins the number of item ranges (1 to MAX_SPLITS) in place of `_splits`'s
 # rule, for timing the rule against one range; None keeps the rule.
 _pin_splits: Optional[int] = None
@@ -173,17 +184,18 @@ def _smem_bytes(k: int, buffer_keys: Optional[int] = None) -> int:
     return 8 * (Q_TILE * k + Q_TILE * b + Q_TILE) + 4 * (Q_TILE + ring + Q_TILE)
 
 
-def _splits(nq: int, n: int, k: int, sms: int) -> Tuple[int, int]:
+def _splits(nq: int, n: int, k: int, sms: int, q_tile: int = Q_TILE) -> Tuple[int, int]:
     """(n_splits, items per split, a whole number of item tiles). The fewest
-    ranges for which query tiles x ranges is a whole number of waves of the
-    card's resident blocks, unless that takes more than MAX_WAVES waves (then
-    enough ranges for MAX_WAVES), each range at least MIN_SPLIT_ITEMS items;
-    `_pin_splits` pins the count in place of the rule. One block is resident
-    per SM (its shared memory at k = 200; its 512 threads' registers at every
-    k)."""
+    ranges for which query tiles (of q_tile queries) x ranges is a whole
+    number of waves of the card's resident blocks, unless that takes more
+    than MAX_WAVES waves (then enough ranges for MAX_WAVES), each range at
+    least MIN_SPLIT_ITEMS items; `_pin_splits` pins the count in place of the
+    rule. One block is resident per SM (the f32 scan: its shared memory at
+    k = 200, its 512 threads' registers at every k; the narrow scan: its
+    ring takes what the pools leave)."""
     n_splits = _pin_splits
     if n_splits is None:
-        tiles = -(-nq // Q_TILE)
+        tiles = -(-nq // q_tile)
         n_splits = sms // math.gcd(tiles, sms)
         if tiles * n_splits > MAX_WAVES * sms:
             n_splits = -(-MAX_WAVES * sms // tiles)
@@ -193,6 +205,79 @@ def _splits(nq: int, n: int, k: int, sms: int) -> Tuple[int, int]:
     per = -(-n // n_splits)
     per = -(-per // ITEM_TILE) * ITEM_TILE
     return -(-n // per), per
+
+
+class NarrowPlan(NamedTuple):
+    """How csrc/topk_narrow.cu runs a narrow form: `consumers` warpgroups of
+    NARROW_Q_TILE queries a block (`q_block` queries), the query tile
+    `resident` in shared memory or streamed through the ring beside the
+    items, a ring of `stages` stages of NARROW_CHUNK_BYTES of each of a
+    tile's ITEM_TILE item rows, `chunks` stages to a tile's padded width,
+    `smem` bytes of dynamic shared memory, and `n_splits` item ranges of
+    `per` items (`_splits`)."""
+
+    consumers: int
+    resident: bool
+    stages: int
+    chunks: int
+    smem: int
+    q_block: int
+    n_splits: int
+    per: int
+
+    def blocks(self, nq: int, n: int):
+        """Each block's (query slice, item slice), in launch order: the query
+        blocks fastest (blockIdx.x % query blocks), as the kernel reads them."""
+        q_blocks = -(-nq // self.q_block)
+        for b in range(q_blocks * self.n_splits):
+            q, r = b % q_blocks, b // q_blocks
+            yield (slice(q * self.q_block, min((q + 1) * self.q_block, nq)),
+                   slice(r * self.per, min((r + 1) * self.per, n)))
+
+
+def narrow_smem_bytes(consumers: int, k: int, stages: int, chunks: int, resident: bool) -> int:
+    """Dynamic shared memory of the narrow scan (csrc/topk_narrow.cu
+    narrow_smem_bytes): 1 KB of alignment slack, the resident query chunks
+    (64 rows x 128 bytes each), the ring (a stage: 128 item rows x 128 bytes,
+    plus the query chunks when they stream), the pools, buffers, k-th keys and
+    shared bounds of each warpgroup's 64 queries, two mbarriers a stage, one
+    for the queries and a count, the k-th d2 and the buffers' counts, and
+    each warpgroup's copy of a tile's item norms and scales."""
+    q_chunk = NARROW_Q_TILE * NARROW_CHUNK_BYTES
+    queries = consumers * chunks * q_chunk if resident else 0
+    stage = ITEM_TILE * NARROW_CHUNK_BYTES + (0 if resident else consumers * q_chunk)
+    keys = consumers * NARROW_Q_TILE * (k + NARROW_BUFFER_KEYS + 2) + 2 * stages + 2
+    return (1024 + queries + stages * stage + 8 * keys + 8 * consumers * NARROW_Q_TILE
+            + 8 * consumers * ITEM_TILE)
+
+
+def narrow_plan(nq: int, n: int, dp: int, precision: str, k: int, sms: int) -> NarrowPlan:
+    """The narrow scan's launch plan for nq queries against n items of dp
+    padded columns in `precision` ("bfloat16" or "int8") at pool width k. The
+    first of (two warpgroups, resident queries), (one, resident), (one,
+    streamed) whose shared memory leaves the ring at least NARROW_MIN_STAGES
+    stages; the ring as deep as one block's shared memory (SMEM_BLOCK)
+    allows; the item ranges by `_splits` with the block's queries as its
+    query tile."""
+    if precision not in ("bfloat16", "int8"):
+        raise ValueError(f"narrow_plan takes 'bfloat16' or 'int8', got {precision!r}")
+    esize = 2 if precision == "bfloat16" else 1
+    chunks = -(-dp * esize // NARROW_CHUNK_BYTES)
+    for consumers, resident in ((2, True), (1, True), (1, False)):
+        fixed = narrow_smem_bytes(consumers, k, 0, chunks, resident)
+        per_stage = narrow_smem_bytes(consumers, k, 1, chunks, resident) - fixed
+        stages = (SMEM_BLOCK - fixed) // per_stage if SMEM_BLOCK > fixed else 0
+        if stages >= NARROW_MIN_STAGES:
+            break
+    else:  # not reached for k <= K_MAX: one streamed warpgroup needs some 200 KB
+        raise ValueError(f"no narrow scan plan fits one block at k = {k}")
+    q_block = consumers * NARROW_Q_TILE
+    n_splits, per = _splits(nq, n, k, sms, q_block)
+    return NarrowPlan(
+        consumers=consumers, resident=resident, stages=stages, chunks=chunks,
+        smem=narrow_smem_bytes(consumers, k, stages, chunks, resident), q_block=q_block,
+        n_splits=n_splits, per=per,
+    )
 
 
 def fused_topk(
@@ -205,7 +290,10 @@ def fused_topk(
     to n and may be at most K_MAX after that. `x2` (n,) f32 is the items'
     cached squared norms. `precision` is the form of the products (MODES); a
     narrow form returns the pool of its approximate ranking, and `items` is
-    X's narrow operand (narrow_rows) when the caller holds one."""
+    X's narrow operand (narrow_rows) when the caller holds one. On CUDA
+    tensors csrc/topk.cu (float32) or csrc/topk_narrow.cu (the narrow forms,
+    launched by `narrow_plan`), counted on LAUNCH_COUNTERS[precision]; on CPU
+    tensors topk_plain."""
     nq, d = Q.shape
     n = X.shape[0]
     _cuda.require(Q, "Q", (nq, d))
@@ -229,38 +317,77 @@ def fused_topk(
     tensors = (Q, X, valid) if x2 is None else (Q, X, valid, x2)
     if _cuda.device_kind(*tensors) == "cpu":
         return topk_plain(Q, X, valid, k, x2, precision=precision, items=items)
-    fn = _cuda.entry("topk")
-    q2 = torch.sum(Q * Q, dim=1)
+    if precision == "float32":
+        q2, x2m = _norms(Q, X, valid, x2)
+        n_splits, per = _splits(nq, n, k, _cuda.sm_count(Q))
+        d2_out, id_out, part, scratch = _outputs(Q, k, n_splits)
+        _cuda.check(
+            _cuda.entry("topk")(
+                Q.data_ptr(), q2.data_ptr(), nq, d, X.data_ptr(), x2m.data_ptr(), n, k, n_splits,
+                per, part.data_ptr(), scratch.data_ptr(), d2_out.data_ptr(), id_out.data_ptr(),
+                _cuda.stream_of(Q)),
+            "top-k kernel (float32)",
+        )
+    else:
+        d2_out, id_out = _narrow_scan(Q, X, valid, k, x2, precision, items)
+    _cuda.count_launch(fused_topk, LAUNCH_COUNTERS[precision])
+    return d2_out, id_out
+
+
+def _norms(Q, X, valid, x2):
+    """The queries' squared norms and the items' with the mask in them: an
+    invalid item's norm reads -1."""
     if x2 is None:
         x2 = center_norms_sq(X)
-    # the mask rides in the norm operand: an invalid item's norm reads -1
-    x2m = torch.where(valid, x2, -1.0)
-    Qop, Xop, qs, xs = Q, X, q2, x2m  # the scales are read by the int8 form only
-    if precision != "float32":
-        Xn = narrow_rows(X, precision) if items is None else items
-        Qn = narrow_rows(Q, precision)
-        if precision == "int8" and Xn.rows.shape[1] > INT8_D_MAX:
-            raise ValueError(f"the int8 form takes at most {INT8_D_MAX} columns, got {d}")
-        Qop, Xop = Qn.rows, Xn.rows
-        if precision == "int8":
-            qs, xs = Qn.scales, Xn.scales
+    return torch.sum(Q * Q, dim=1), torch.where(valid, x2, -1.0)
+
+
+def _outputs(Q, k, n_splits):
+    """(d2 (nq, k) f32, ids (nq, k) int32, part, scratch): with several item
+    ranges each range's pool of k keys and the merge's two rounds of scratch,
+    else d2 again (not read)."""
+    nq = Q.shape[0]
     d2_out = torch.empty((nq, k), dtype=torch.float32, device=Q.device)
     id_out = torch.empty((nq, k), dtype=torch.int32, device=Q.device)
-    n_splits, per = _splits(nq, n, k, _cuda.sm_count(Q))
-    part = scratch = d2_out  # not read with one range
+    part = scratch = d2_out
     if n_splits > 1:
-        # each range's pool of k keys, and the merge's two rounds of scratch
         half = -(-n_splits // 2)
         part = torch.empty((n_splits, nq, k), dtype=torch.int64, device=Q.device)
         scratch = torch.empty((nq, half + -(-half // 2), k), dtype=torch.int64, device=Q.device)
+    return d2_out, id_out, part, scratch
+
+
+def _narrow_scan(Q, X, valid, k, x2, precision, items, *, products_only=False):
+    """csrc/topk_narrow.cu on CUDA tensors as `fused_topk` checked them (k
+    clamped), launched by `narrow_plan` and not counted: (d2, ids).
+    products_only=True is a timing variant that skips the epilogue (its
+    result is then meaningless), for chip_smoke.py alone."""
+    nq, n = Q.shape[0], X.shape[0]
+    q2, x2m = _norms(Q, X, valid, x2)
+    Xn = narrow_rows(X, precision) if items is None else items
+    Qn = narrow_rows(Q, precision)
+    dp = Xn.rows.shape[1]
+    if precision == "int8" and dp > INT8_D_MAX:
+        raise ValueError(f"the int8 form takes at most {INT8_D_MAX} columns, got {Q.shape[1]}")
+    plan = narrow_plan(nq, n, dp, precision, k, _cuda.sm_count(Q))
+    d2_out, id_out, part, scratch = _outputs(Q, k, plan.n_splits)
+    # the scales are read by the int8 form only; with several ranges, each
+    # query's shared bounds (csrc/topk_narrow.cu), all ones at first
+    qs, xs = (Qn.scales, Xn.scales) if precision == "int8" else (q2, x2m)
+    bound = part if plan.n_splits == 1 else torch.full((plan.n_splits + 1, nq), -1,
+                                                       dtype=torch.int64, device=Q.device)
+    # the largest finite valid item norm, which the kernel's row filter takes
+    # its slack from
+    x2max = torch.where(valid & torch.isfinite(x2m), x2m, 0.0).amax().reshape(1)
     _cuda.check(
-        fn(Qop.data_ptr(), q2.data_ptr(), nq, Qop.shape[1], Xop.data_ptr(), x2m.data_ptr(), n,
-           k, n_splits, per, part.data_ptr(), scratch.data_ptr(), d2_out.data_ptr(),
-           id_out.data_ptr(), MODES[precision], qs.data_ptr(), xs.data_ptr(),
-           _cuda.stream_of(Q)),
+        _cuda.entry("topk_narrow")(
+            Qn.rows.data_ptr(), q2.data_ptr(), nq, dp, Xn.rows.data_ptr(), x2m.data_ptr(), n, k,
+            plan.n_splits, plan.per, plan.consumers, plan.stages, int(plan.resident),
+            part.data_ptr(), scratch.data_ptr(), d2_out.data_ptr(), id_out.data_ptr(),
+            MODES[precision], qs.data_ptr(), xs.data_ptr(), x2max.data_ptr(),
+            int(products_only), bound.data_ptr(), _cuda.stream_of(Q)),
         f"top-k kernel ({precision})",
     )
-    _cuda.count_launch(fused_topk, LAUNCH_COUNTERS[precision])
     return d2_out, id_out
 
 
